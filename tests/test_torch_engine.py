@@ -17,7 +17,7 @@ from yolo_quantization_tpu_torch.infer import engine as tengine
 from yolo_quantization_tpu_torch.infer.convert import convert
 from yolo_quantization_tpu_torch.models import presets as tpresets
 from yolo_quantization_tpu_torch.nn import graph as G
-from yolo_quantization_tpu_torch.ops import cuda_qconv
+from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d
 
 torch.set_num_threads(2)
 
@@ -77,6 +77,61 @@ def test_every_layer_matches_jax(programs, images, dtype):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+@pytest.fixture(scope="module")
+def parity_programs():
+    """The C-binary parity configuration: leaky yolov3-tiny, asymmetric
+    weights, raw-byte route concat, from the same seeded weights."""
+    from yolo_quantization_tpu.infer.convert import convert as jconvert
+    from yolo_quantization_tpu.models import zoo as jzoo
+    from yolo_quantization_tpu.nn.graph import init_params_numpy
+
+    net = jzoo.yolov3_tiny(classes=5, activation="leaky", width=SIZE, height=SIZE)
+    jp = jconvert(net, init_params_numpy(0, net), jpresets.synthetic_quant_state(net),
+                  symmetric_weights=False, route_rescale=False)
+    return jp, tpresets.parity_program(size=SIZE)
+
+
+CONFIGS = {
+    "s2d": dict(use_s2d=True),
+    "s2d_dynamic": dict(use_s2d=True, dynamic_input=True),
+    "parity": dict(dynamic_input=True, exact_leaky=True),
+    "int16": dict(carrier="int16"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_options_match_jax_layer_by_layer(programs, parity_programs, images, config, dtype):
+    """Per-layer int8 codes and heads bit-equal to the JAX engine's under
+    each option set; decoded boxes within float tolerance."""
+    from yolo_quantization_tpu.eval import detect as jdetect
+
+    jp, tp = parity_programs if config == "parity" else programs
+    option = CONFIGS[config]
+    x = images[dtype]
+    jheads, jouts = jengine.build_forward(jp, return_outputs=True, **option)(
+        jax.device_put(jp.arrays), jnp.asarray(x))
+    theads, touts = tengine.build_forward(tp, return_outputs=True, **option)(
+        tengine.device_arrays(tp, "cpu"), torch.from_numpy(x))
+    # K1's fused convs emit the pooled tensor, the reference's layer i+1; the
+    # s2d layers hold the pooled tensor in both engines
+    s2d = {i for i, c in enumerate(tp.cfg) if c.s2d_pool} if option.get("use_s2d") else set()
+    fused = tengine.fusion_plan(tp) - s2d
+    if config == "s2d":
+        assert s2d == {0, 2, 4}
+    assert len(jouts) == len(touts) == len(tp.cfg)
+    for i, got in enumerate(touts):
+        ref = np.asarray(jouts[i + 1] if i in fused else jouts[i])
+        assert got.numpy().dtype == ref.dtype, i
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"layer {i}")
+    for a, b in zip(jheads, theads):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    jd = jdetect.decode_all_heads(jheads, jp.net)
+    td = tdetect.decode_all_heads(theads, tp.net)
+    for a, b in zip(jd, td):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **DECODE_TOL)
+
+
 def test_predict_and_nms_match_jax(programs, images):
     jp, tp = programs
     x = images["float32"]
@@ -130,9 +185,9 @@ def test_raw_heads_and_outputs(programs, images):
 
 def test_cpu_engine_counts_no_kernel_launches(programs, images):
     _, tp = programs
-    before = cuda_qconv.launches
-    tengine.Engine(tp, device="cpu").predict(images["float32"])
-    assert cuda_qconv.launches == before
+    before = cuda_qconv.launches, cuda_s2d.launches
+    tengine.Engine(tp, device="cpu", use_s2d=True).predict(images["float32"])
+    assert (cuda_qconv.launches, cuda_s2d.launches) == before
 
 
 def _small_net(extra):
@@ -174,23 +229,127 @@ def test_cpu_engine_runs_stride2_and_asymmetric_convs(symmetric):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(use_s2d=True), "K2"),
-    (dict(carrier="int16"), "K1 remaining"),
-    (dict(dynamic_input=True), "K1 remaining"),
-    (dict(exact_leaky=True), "K1 remaining"),
-    (dict(approx_topk=True), "queue 1.4"),
+def _jax_predict(jp, x, max_det, **option):
+    """The JAX engine's heads (un-jitted, so XLA's division is not turned
+    into a reciprocal multiply) decoded and top-k'd as Engine.predict does."""
+    from yolo_quantization_tpu.eval import detect as jdetect
+
+    heads = jengine.build_forward(jp, **option)(jax.device_put(jp.arrays), jnp.asarray(x))
+    return heads, jdetect.top_k_detections(*jdetect.decode_all_heads(heads, jp.net), max_det=max_det)
+
+
+@pytest.mark.parametrize("option", [
+    dict(use_s2d=True),
+    dict(carrier="int16"),
+    dict(dynamic_input=True),
+    dict(exact_leaky=True),
 ])
-def test_options_outside_the_slice_raise(programs, option, item):
-    _, tp = programs
-    with pytest.raises(NotImplementedError, match=item):
-        tengine.Engine(tp, device="cpu", **option)
+def test_options_of_the_slice_match_jax(programs, images, option):
+    """Each engine option the reference has runs on the CPU engine: heads
+    bit-equal to the JAX engine's, detections within float tolerance."""
+    jp, tp = programs
+    x = images["uint8"]
+    eng = tengine.Engine(tp, max_det=32, device="cpu", **option)
+    jheads, jdets = _jax_predict(jp, x, 32, **option)
+    for a, b in zip(jheads, eng.raw_heads(x)):
+        np.testing.assert_array_equal(b, np.asarray(a))
+    for a, b in zip(jdets, eng.predict(x)):
+        np.testing.assert_allclose(b, np.asarray(a), **DECODE_TOL)
 
 
-def test_flip_tta_raises(programs, images):
+def test_options_outside_the_slice_raise(programs):
     _, tp = programs
-    with pytest.raises(NotImplementedError, match="flip"):
-        tengine.Engine(tp, device="cpu").predict(images["float32"], flip=True)
+    with pytest.raises(NotImplementedError, match="queue 1.4"):
+        tengine.Engine(tp, device="cpu", approx_topk=True)
+    with pytest.raises(ValueError, match="carrier"):
+        tengine.Engine(tp, device="cpu", use_s2d=True, carrier="int16")
+
+
+def test_flip_tta_matches_jax(programs, images):
+    """predict(flip=True) averages the yolo heads over the mirrored batch,
+    as the JAX engine does."""
+    from yolo_quantization_tpu.eval import detect as jdetect
+
+    jp, tp = programs
+    x = images["float32"]
+    jb, jo, jc = jengine.Engine(jp, max_det=32).predict(x, flip=True)
+    tb, to, tc = tengine.Engine(tp, max_det=32, device="cpu").predict(x, flip=True)
+    np.testing.assert_allclose(to, jo, **DECODE_TOL)
+    np.testing.assert_allclose(tb, jb, **DECODE_TOL)
+    np.testing.assert_allclose(tc, jc, **DECODE_TOL)
+    rng = np.random.default_rng(1)
+    a, b = (rng.standard_normal((2, 5, 7, 30)).astype(np.float32) for _ in range(2))
+    got = tdetect.flip_average_head(torch.from_numpy(a), torch.from_numpy(b), 5).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jdetect.flip_average_head(jnp.asarray(a), jnp.asarray(b), 5)))
+
+
+def test_at_size_matches_jax(programs, images):
+    """at_size shares the device arrays, caches per size, and runs the same
+    program at another resolution as the JAX engine's at_size."""
+    jp, tp = programs
+    eng = tengine.Engine(tp, max_det=32, device="cpu")
+    e96 = eng.at_size(96)
+    assert e96 is eng.at_size(96) and eng.at_size(SIZE) is eng and e96.arrays is eng.arrays
+    with pytest.raises(ValueError, match="multiple of 32"):
+        eng.at_size(100)
+    x = np.random.default_rng(3).uniform(0, 1, (2, 96, 96, 3)).astype(np.float32)
+    jb, jo, jc = jengine.Engine(jp, max_det=32).at_size(96).predict(x)
+    tb, to, tc = e96.predict(x)
+    np.testing.assert_allclose(to, jo, **DECODE_TOL)
+    np.testing.assert_allclose(tb, jb, **DECODE_TOL)
+    np.testing.assert_allclose(tc, jc, **DECODE_TOL)
+
+
+def test_engine_runs_on_cuda_unless_asked(programs):
+    _, tp = programs
+    if torch.cuda.is_available():
+        assert tengine.Engine(tp).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tengine.Engine(tp)
+
+
+def test_raw_heads_outputs_run_the_engine_options(programs, images, monkeypatch):
+    """raw_heads(return_outputs=True) runs the engine's own configuration:
+    with use_s2d the s2d stem kernel fills layer 0's slot with the pooled
+    tensor, and with dynamic_input the codes are the per-image ones."""
+    _, tp = programs
+    calls = []
+    real = tengine.cuda_s2d.s2d_conv_phase_max_cuda
+    monkeypatch.setattr(tengine.cuda_s2d, "s2d_conv_phase_max_cuda",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = images["float32"]
+    eng = tengine.Engine(tp, device="cpu", use_s2d=True)
+    heads, outs = eng.raw_heads(x, return_outputs=True)
+    assert len(calls) == 3  # layers 0, 2 and 4
+    assert outs[0].shape == (3, SIZE // 2, SIZE // 2, 16)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    dyn = tengine.Engine(tp, device="cpu", dynamic_input=True)
+    heads_d, outs_d = dyn.raw_heads(x, return_outputs=True)
+    np.testing.assert_array_equal(heads_d[0], dyn.raw_heads(x)[0])
+    assert not np.array_equal(outs_d[0], outs[0])
+
+
+def test_npz_program_runs_k1_only_under_use_s2d(programs, images, monkeypatch, tmp_path):
+    """save_program drops s2d_pool, as the reference's does: a loaded program
+    runs every conv on K1 even with use_s2d, with the same codes."""
+    from yolo_quantization_tpu_torch.infer.serialize import load_program, save_program
+
+    _, tp = programs
+    save_program(str(tmp_path / "p.npz"), tp)
+    loaded = load_program(str(tmp_path / "p.npz"))
+    assert not any(c.s2d_pool for c in loaded.cfg) and "w_s2d" in loaded.arrays[0]
+    calls = []
+    real = tengine.cuda_s2d.s2d_conv_phase_max_cuda
+    monkeypatch.setattr(tengine.cuda_s2d, "s2d_conv_phase_max_cuda",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = images["uint8"]
+    got = tengine.Engine(loaded, device="cpu", use_s2d=True).raw_heads(x)
+    assert not calls
+    for a, b in zip(got, tengine.Engine(tp, device="cpu", use_s2d=True).raw_heads(x)):
+        np.testing.assert_array_equal(a, b)
+    assert len(calls) == 3
 
 
 @pytest.mark.parametrize("extra,kind", [
@@ -229,3 +388,22 @@ def test_cuda_engine_matches_cpu_engine(programs, images):
     with pytest.raises(NotImplementedError, match="stride-2"):
         tengine.Engine(_program(_small_net(())), device="cuda").predict(
             np.zeros((1, 32, 32, 3), np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_cuda_engine_options_match_cpu_engine(programs, parity_programs, images, config):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    _, tp = parity_programs if config == "parity" else programs
+    option = CONFIGS[config]
+    gpu = tengine.Engine(tp, device="cuda", **option)
+    cpu = tengine.Engine(tp, device="cpu", **option)
+    k2 = 3 if option.get("use_s2d") else 0
+    for x in images.values():
+        before = cuda_qconv.launches, cuda_s2d.launches
+        hg, og = gpu.raw_heads(x, return_outputs=True)
+        assert (cuda_qconv.launches - before[0], cuda_s2d.launches - before[1]) == (13 - k2, k2)
+        hc, oc = cpu.raw_heads(x, return_outputs=True)
+        for a, b in zip(og + hg, oc + hc):
+            np.testing.assert_array_equal(a, b)

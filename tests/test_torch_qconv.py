@@ -179,6 +179,64 @@ def test_wrapper_on_cpu_runs_the_plain_version(rng, fuse_pool):
         cuda_qconv.quantized_conv2d_cuda(odd, *args[1:], 4, pad=1, fuse_pool=True)
 
 
+def _option_inputs(rng, variant, n=2, h=12, ci=6, co=24):
+    """Seeded conv inputs for one K1 option: asymmetric weight zero points,
+    per-image zero points with (N, Co) bias/m, exact_leaky, or int16."""
+    x, w, bias, m = make_inputs(rng, n=n, h=h, ci=ci, co=co)
+    kw = dict(act=ACT_LEAKY, exact_leaky=variant in ("exact_leaky", "all"),
+              carrier="int16" if variant in ("int16", "all") else "int8")
+    w_zp = rng.integers(-128, 128, (co,)).astype(np.int32) if variant in ("asym", "all") else None
+    if variant in ("per_image", "all"):
+        x_zp = rng.integers(-128, 128, (n,)).astype(np.int32)
+        bias = rng.integers(-(2**14), 2**14, (n, co)).astype(np.int32)
+        m = rng.uniform(1e-4, 5e-3, (n, co)).astype(np.float32)
+    else:
+        x_zp = 7
+    return x, w, bias, m, x_zp, w_zp, kw
+
+
+VARIANTS = ["asym", "per_image", "exact_leaky", "int16", "all"]
+
+
+@pytest.mark.parametrize("fuse_pool", [False, True])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_wrapper_options_match_jax(rng, variant, fuse_pool):
+    """The K1 wrapper's CPU path with each reference-engine option equals the
+    JAX package's XLA conv (then maxpool), image by image for per-image
+    zero points."""
+    x, w, bias, m, x_zp, w_zp, kw = _option_inputs(rng, variant)
+    t = lambda a: None if a is None else (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)  # noqa: E731
+    got = cuda_qconv.quantized_conv2d_cuda(
+        t(x), t(w), t(bias), t(m), t(x_zp), pad=1, out_zp_static=90, fuse_pool=fuse_pool,
+        out_i8=True, w_zp=t(w_zp), **kw).numpy()
+    wants = []
+    for i in range(x.shape[0]):
+        per = bias.ndim == 2
+        y = jqconv.quantized_conv2d(
+            jnp.asarray(x[i : i + 1]), jnp.asarray(w),
+            jnp.asarray(bias[i : i + 1] if per else bias), jnp.asarray(m[i : i + 1] if per else m),
+            jnp.int32(x_zp[i] if isinstance(x_zp, np.ndarray) else x_zp),
+            jnp.asarray(w_zp if w_zp is not None else np.zeros(w.shape[-1], np.int32)),
+            jnp.int32(90), stride=1, pad=1, symmetric=w_zp is None, out_i8=True, **kw)
+        wants.append(np.asarray(jlayers.maxpool_u8(y, 2, 2, 1) if fuse_pool else y))
+    np.testing.assert_array_equal(got, np.concatenate(wants))
+
+
+def test_int16_carrier_acc_matches_jax(rng):
+    x = rng.integers(-128, 128, (2, 9, 9, 12), dtype=np.int8)
+    w = rng.integers(-128, 128, (3, 3, 12, 20), dtype=np.int8)
+    w_zp = rng.integers(-128, 128, (20,)).astype(np.int32)
+    for stride in (1, 2):
+        got = tqconv.conv_acc_int32(torch.from_numpy(x), torch.from_numpy(w), 11,
+                                    torch.from_numpy(w_zp), stride, 1, carrier="int16").numpy()
+        ref = jqconv.conv_acc_int32(jnp.asarray(x), jnp.asarray(w), jnp.int32(11),
+                                    jnp.asarray(w_zp), stride, 1, carrier="int16")
+        np.testing.assert_array_equal(got, np.asarray(ref))
+    with pytest.raises(ValueError, match="carrier"):
+        tqconv.conv_acc_int32(torch.from_numpy(x), torch.from_numpy(w), 0, None, 1, 1,
+                              symmetric=True, carrier="int4")
+
+
 def test_pack_weights_layout():
     w = torch.arange(2 * 2 * 3 * 5, dtype=torch.int8).reshape(2, 2, 3, 5)
     p = cuda_qconv.pack_weights(w)
@@ -207,4 +265,21 @@ def test_cuda_kernel_matches_plain(rng, h, ci, co, k, pad, act, out_i8, fuse_poo
                                            out_zp_static=111, fuse_pool=fuse_pool, out_i8=out_i8)
     torch.cuda.synchronize()
     assert cuda_qconv.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_pool", [False, True])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("ci", [3, 64])
+def test_cuda_kernel_options_match_plain(rng, variant, fuse_pool, ci):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    x, w, bias, m, x_zp, w_zp, kw = _option_inputs(rng, variant, h=18, ci=ci, co=40)
+    args = [None if a is None else torch.from_numpy(np.asarray(a)) for a in (x, w, bias, m, x_zp, w_zp)]
+    call = dict(pad=1, out_zp_static=90, fuse_pool=fuse_pool, out_i8=False, **kw)
+    ref = cuda_qconv.quantized_conv2d_cuda(*args[:5], w_zp=args[5], **call)
+    cu = [None if a is None else a.cuda() for a in args]
+    got = cuda_qconv.quantized_conv2d_cuda(*cu[:5], w_zp=cu[5], **call)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)

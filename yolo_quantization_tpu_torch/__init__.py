@@ -6,20 +6,26 @@ relative path, and it never imports ``jax``.  Layouts at every public
 function are the reference's: NHWC activations, HWIO weights, and the same
 ``.npz`` array names.
 
-This slice covers integer serving of yolov3-tiny:
+The port covers integer serving and F1 evaluation of yolov3-tiny:
 
   nn/graph.py        model description (specs, NetworkDef, numpy init)
   core/quant.py      host-side quant math (multiplier encoding)
-  models/            yolov3-tiny builder, flagship presets
+  models/            yolov3-tiny builder, flagship and C-parity presets
   infer/convert.py   float params + ranges -> IntProgram (numpy)
   infer/serialize.py yoloq-intprogram-v1 .npz save/load
-  ops/qconv.py       plain PyTorch integer conv (the oracle)
+  ops/qconv.py       plain PyTorch integer conv and s2d stem (the oracles)
   ops/cuda_qconv.py  hand-written CUDA int8 conv kernel wrapper (csrc/qconv.cu)
+  ops/cuda_s2d.py    hand-written CUDA s2d stem kernel wrapper (csrc/s2d_qconv.cu)
   nn/layers.py       integer maxpool / nearest upsample
-  infer/engine.py    IntProgram -> forward on a torch device, decode, top-k
-  eval/detect.py     yolo decode, top-k, box correction, NMS
-  data/image.py      darknet letterbox
+  infer/engine.py    IntProgram -> forward on a torch device, decode, top-k,
+                     flip TTA, per-resolution engines
+  eval/detect.py     yolo decode, flip averaging, top-k, box correction, NMS
+  eval/f1.py         darknet's F1 and recall counting
+  data/image.py      image decoding, darknet letterbox
+  data/voc.py        image lists and label files
   infer/serving.py   continuous-batching Server
+  tools/             the GEMM-orientation probe (csrc/gemm_probe.cu) and the
+                     forward's profiler breakdown
 """
 
 __version__ = "0.1.0"

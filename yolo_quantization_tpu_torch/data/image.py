@@ -1,13 +1,22 @@
-"""Letterboxing with darknet's geometry (numpy).
+"""Image decoding and letterboxing with darknet's geometry (numpy).
 
 darknet's bilinear resize samples with align-corners (scale =
 (src-1)/(dst-1)); the letterbox places the resized image on a 0.5-gray
-canvas.  Image decoding is not ported yet (ROADMAP queue 1.9).
+canvas.  Decoding goes through PIL; the reference's native libjpeg/libpng
+decoder is not ported yet (ROADMAP queue 1.10).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def load_image_rgb(path: str) -> np.ndarray:
+    """Decode to float32 HWC RGB in [0, 1]."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
 
 
 def resize_bilinear_darknet(im: np.ndarray, out_w: int, out_h: int) -> np.ndarray:

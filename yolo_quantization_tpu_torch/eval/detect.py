@@ -1,9 +1,12 @@
-"""YOLO head decode, top-k prefilter, box correction and NMS.
+"""YOLO head decode, flip-TTA averaging, top-k prefilter, box correction,
+NMS and truth matching.
 
 The counterpart of ``yolo_quantization_tpu/eval/detect.py`` for yolo heads:
-decode and top-k run on the engine's device in PyTorch; box correction and
-NMS run on the host in numpy with darknet's suppression semantics.  Region
-(yolov2) and detection (yolov1) heads are not ported yet (ROADMAP queue 1.4).
+decode and top-k run on the engine's device in PyTorch; box correction, NMS
+and the F1 harness's truth matching run on the host in numpy with darknet's
+semantics (the numpy forms of ``yolo_quantization_tpu/utils/native.py``).
+Region (yolov2) and detection (yolov1) heads are not ported yet (ROADMAP
+queue 1.4).
 """
 
 from __future__ import annotations
@@ -46,6 +49,18 @@ def decode_head(
         obj.reshape(n, h * w * a),
         cls.reshape(n, h * w * a, num_classes),
     )
+
+
+def flip_average_head(a: torch.Tensor, b: torch.Tensor, classes: int) -> torch.Tensor:
+    """Average a yolo head's raw output over the horizontal-flip TTA pair
+    (darknet's avg_flipped_yolo).  ``a`` is the head on the image, ``b`` on
+    its W-mirror, both (N, H, W, A*(5+C)); ``b`` is mirrored back and its tx
+    entries negated (sig(-t) = 1 - sig(t) mirrors bx exactly)."""
+    n, h, w, c = a.shape
+    blk = 5 + classes
+    bf = b.flip(2).reshape(n, h, w, c // blk, blk).clone()
+    bf[..., 0] *= -1.0
+    return (a + bf.reshape(n, h, w, c)) / 2.0
 
 
 def decode_all_heads(heads, net):
@@ -137,3 +152,21 @@ def nms_obj(
         obj[i + 1 :][suppress] = 0.0
         cls[i + 1 :][suppress] = 0.0
     return boxes, obj, cls
+
+
+def match_truths(
+    det_boxes: np.ndarray, det_obj: np.ndarray, truth_boxes: np.ndarray,
+    thresh: float, iou_thresh: float,
+) -> tuple[int, float]:
+    """(TP count, sum of best IoUs) for the F1 harness: per truth, the best
+    IoU over detections with objectness > thresh; a TP when above
+    ``iou_thresh`` (darknet's validate_detector_f1 inner loop)."""
+    db, do, tb = (np.asarray(a, np.float32) for a in (det_boxes, det_obj, truth_boxes))
+    live = do > thresh
+    tp, acc = 0, 0.0
+    for t in tb:
+        best = float(np.max(box_iou(db[live], t))) if live.any() else 0.0
+        acc += best
+        if best > iou_thresh:
+            tp += 1
+    return tp, acc

@@ -2,17 +2,21 @@
 
 The counterpart of ``yolo_quantization_tpu/infer/engine.py``: the float (or
 uint8) NHWC image batch is quantized on the device to the shifted int8
-representation (uint8 code - 128), every conv runs through the hand-written
-CUDA kernel (``ops/cuda_qconv.py``; its plain PyTorch version on the CPU),
+representation (uint8 code - 128), every conv runs through a hand-written
+CUDA kernel (``ops/cuda_qconv.py``, and with ``use_s2d`` the stem's
+``ops/cuda_s2d.py``; their plain PyTorch versions on the CPU),
 maxpool/route/upsample stay on codes, the quant_stop heads are dequantized,
 and yolo decode + top-k run on the device before the host gets the result.
 
-Slice coverage: qconv (stride 1, symmetric weights on CUDA), maxpool,
-upsample, route (with requant), yolo.  Every other layer kind and engine
-option raises ``NotImplementedError`` naming its ROADMAP item.
+Slice coverage: qconv (stride 1 on CUDA, any weights), maxpool, upsample,
+route (with requant), yolo; the options ``use_s2d``, ``dynamic_input``,
+``exact_leaky`` and ``carrier="int16"``; flip TTA and ``at_size``.  Every
+other layer kind raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,16 +24,23 @@ import torch
 from yolo_quantization_tpu_torch.eval import detect
 from yolo_quantization_tpu_torch.infer.convert import IntProgram
 from yolo_quantization_tpu_torch.nn import layers as L
-from yolo_quantization_tpu_torch.nn.graph import MaxPoolSpec, RouteSpec, ShortcutSpec
-from yolo_quantization_tpu_torch.ops import cuda_qconv, qconv
+from yolo_quantization_tpu_torch.nn.graph import (
+    HEAD_SPECS,
+    MaxPoolSpec,
+    RouteSpec,
+    ShortcutSpec,
+    YoloSpec,
+)
+from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, qconv
 
 _KIND_ROADMAP = {
-    "shortcut": "ROADMAP queue 1.3 (integer shortcut)",
-    "shortcut_f32": "ROADMAP queue 1.3 (integer shortcut)",
+    "shortcut": "ROADMAP: the yolov3 slice (integer shortcut)",
+    "shortcut_f32": "ROADMAP: the yolov3 slice (integer shortcut)",
     "fconv": "ROADMAP queue 1.6 (float layers)",
     "route_f32": "ROADMAP queue 1.6 (float layers)",
     "simple": "ROADMAP queue 1.6 (float layers)",
 }
+_DYNAMIC_INGREDIENTS = ("bias_f", "wsum_i32", "w_scale", "out_scale_f")
 
 
 def _f32(v: float) -> float:
@@ -38,9 +49,60 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def _div(x: torch.Tensor, v: float) -> torch.Tensor:
+    """x / float32(v), correctly rounded on every device: CUDA turns a
+    division by a host scalar into a multiply by its reciprocal, which can
+    differ by an ulp; a divisor on the tensor's own device is divided."""
+    return x / x.new_full((), _f32(v), dtype=torch.float32)
+
+
+def _round_half_away(v: torch.Tensor) -> torch.Tensor:
+    """C round() (half away from zero) in exact float32 ops: a - floor(a) is
+    exact in float32, so the .5 comparison never suffers the rounding an
+    |x| + 0.5 addition can."""
+    a = torch.abs(v)
+    f = torch.floor(a)
+    r = f + (a - f >= 0.5).to(v.dtype)
+    return torch.where(v < 0, -r, r)
+
+
+def _dynamic_input_qp(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-image input (scale, zero_point) with the reference's float32
+    arithmetic: min/max seeded at 0, scale = (max-min)/255, zp = round(-min/
+    scale) clamped.  Returns ((N,) f32 scale, (N,) f32 integral zp)."""
+    flat = x.reshape(x.shape[0], -1).to(torch.float32)
+    mx = torch.clamp(flat.amax(dim=1), min=0.0)
+    mn = torch.clamp(flat.amin(dim=1), max=0.0)
+    scale = _div(mx - mn, 255.0)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    zp = torch.clamp(_round_half_away(0.0 - mn / scale), 0.0, 255.0)
+    return scale, zp
+
+
+def _quantize_input_dynamic(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
+    """Float image -> shifted int8 codes with per-image (scale, zp), C round."""
+    t = _round_half_away(x / scale[:, None, None, None]) + zp[:, None, None, None]
+    return (torch.clamp(t, 0.0, 255.0) - 128.0).to(torch.int8)
+
+
+def _dyn_bias_m(a, symmetric_w: bool, k_elems: int, dyn_scale: torch.Tensor,
+                dyn_zp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer 0's per-image (N, O) int32 bias and multiplier, the runtime twin
+    of the converter's bias fold and m.  The correction is evaluated in
+    float32 with the reference's expression tree and only then cast: its
+    products exceed 2^24, so integer arithmetic would round differently."""
+    denom = dyn_scale[:, None] * a["w_scale"][None, :]
+    bias_q = _round_half_away(a["bias_f"][None, :] / denom)
+    zx = dyn_zp[:, None] - 128.0
+    corr = -zx * a["wsum_i32"].to(torch.float32)
+    if not symmetric_w:
+        corr = corr + k_elems * zx * a["w_zp"].to(torch.float32)
+    return (bias_q + corr).to(torch.int32), denom / a["out_scale_f"]
+
+
 def _quantize_input(x: torch.Tensor, scale: float, zp: int) -> torch.Tensor:
     """Image floats -> shifted int8 codes: clamp(round(x/scale) + zp - 128)."""
-    q = torch.round(x / _f32(scale)) + (zp - 128)
+    q = torch.round(_div(x, scale)) + (zp - 128)
     return torch.clamp(q, -128, 127).to(torch.int8)
 
 
@@ -63,9 +125,11 @@ def fusion_plan(program: IntProgram) -> set[int]:
     """Convs whose following 2x2/s2 maxpool runs inside the conv kernel.
 
     Mirrors the reference engine's plan, with the kernel's own eligibility
-    (stride 1, symmetric weights, any Cin): not a quant_stop head, even
-    output dims, the next layer a size-2/stride-2 pool, and no route or
-    shortcut reading the conv's (never materialized) pre-pool output.
+    (stride 1, any weights, any Cin): not a quant_stop head, even output
+    dims, the next layer a size-2/stride-2 pool, and no route or shortcut
+    reading the conv's (never materialized) pre-pool output.  Asymmetric
+    convs qualify: the pool is a max on the zero-point-corrected
+    accumulators, and the epilogue is monotone in them (m > 0).
     """
     net, cfg = program.net, program.cfg
     shapes = net.shapes()
@@ -80,7 +144,7 @@ def fusion_plan(program: IntProgram) -> set[int]:
         nxt = cfg[i + 1].spec
         oh, ow, _ = shapes[i]
         if (
-            c.kind == "qconv" and c.symmetric_w and c.spec.stride == 1
+            c.kind == "qconv" and c.spec.stride == 1
             and not c.quant_stop
             and oh % 2 == 0 and ow % 2 == 0
             and isinstance(nxt, MaxPoolSpec)
@@ -92,20 +156,26 @@ def fusion_plan(program: IntProgram) -> set[int]:
 
 
 def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tensor]]:
-    """The program arrays the forward reads, as tensors on ``device``; on
-    CUDA each conv also carries its weights packed for the kernel."""
+    """The program arrays the forward reads, as tensors on ``device``: each
+    conv's weights, bias, m and weight zero points, the s2d block kernel
+    where the converter made one, and layer 0's ``dynamic_input``
+    ingredients.  On CUDA each conv also carries its weights packed for the
+    kernels."""
     device = torch.device(device)
     out: dict[int, dict[str, torch.Tensor]] = {}
     for i, c in enumerate(program.cfg):
         if c.kind != "qconv":
             continue
         a = program.arrays[i]
+        names = ("w_i8", "bias_i32", "m", "w_zp", "w_s2d") + (_DYNAMIC_INGREDIENTS if i == 0 else ())
         t = {
             name: torch.from_numpy(np.ascontiguousarray(a[name])).to(device)
-            for name in ("w_i8", "bias_i32", "m", "w_zp")
+            for name in names if name in a
         }
         if device.type == "cuda":
             t["w_packed"] = cuda_qconv.pack_weights(t["w_i8"])
+            if "w_s2d" in t:
+                t["w_s2d_packed"] = cuda_s2d.pack_weights(t["w_s2d"])
         out[i] = t
     return out
 
@@ -118,52 +188,79 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
     x is a float32 [0,1] or uint8 NHWC batch on the same device.
 
     Layers in the conv+pool fusion plan emit the pooled tensor, and the
-    fused pool's slot repeats it (the pre-pool tensor never exists).
+    fused pool's slot repeats it (the pre-pool tensor never exists).  With
+    ``use_s2d`` every conv the converter marked ``s2d_pool`` runs the s2d
+    stem kernel instead, and its slot holds the pooled tensor likewise.
+    ``dynamic_input`` quantizes the input per image and rebuilds layer 0's
+    bias and m per image; ``exact_leaky`` is darknet's double-rounded leaky;
+    ``carrier="int16"`` runs every conv with 16-bit operands (same bits).
     """
-    if use_s2d:
-        _unsupported("use_s2d", "ROADMAP kernels to port: K2 pallas_s2d_conv_phase_max")
-    if carrier != "int8":
-        _unsupported(f"carrier={carrier!r}", "ROADMAP: K1 remaining coverage")
+    if carrier not in ("int8", "int16"):
+        raise ValueError(f"unsupported conv carrier {carrier!r}")
+    if use_s2d and carrier != "int8":
+        # K2 contracts int8 operands only, as the Pallas kernel it replaces;
+        # running it would skip the carrier's purpose as a cross-check
+        raise ValueError("use_s2d supports carrier='int8' only")
+    cfg = program.cfg
     if dynamic_input:
-        _unsupported("dynamic_input", "ROADMAP: K1 remaining coverage")
-    if exact_leaky:
-        _unsupported("exact_leaky", "ROADMAP: K1 remaining coverage")
-    for c in program.cfg:
+        if cfg[0].kind != "qconv":
+            raise ValueError("dynamic_input requires a quantized conv as layer 0")
+        missing = set(_DYNAMIC_INGREDIENTS) - set(program.arrays.get(0, {}))
+        if missing:
+            raise ValueError(
+                f"program predates dynamic_input support (layer 0 lacks "
+                f"{sorted(missing)}); re-run convert() to regenerate it"
+            )
+    for c in cfg:
         if c.kind in _KIND_ROADMAP:
             _unsupported(f"layer kind {c.kind!r}", _KIND_ROADMAP[c.kind])
 
-    cfg = program.cfg
     fused = fusion_plan(program)
+    s2d = {i for i, c in enumerate(cfg) if c.s2d_pool} if use_s2d else set()
     # per-layer scalars stay host ints: reading them from device would sync
     x_zp = {i: int(program.arrays[i]["x_zp"]) for i, c in enumerate(cfg) if c.kind == "qconv"}
+    k_elems0 = int(np.prod(program.arrays[0]["w_i8"].shape[:3])) if dynamic_input else 0
 
-    def conv(i, c, a, x, fuse_pool):
+    def conv(i, c, a, x, zp, bias, m):
         s = c.spec
         if x.dtype != torch.int8:
             raise NotImplementedError(
                 f"layer {i}: a quantized conv after a float layer is not "
                 "ported yet (ROADMAP queue 1.6)"
             )
-        if s.stride == 1 and c.symmetric_w:
+        if i in s2d:
+            return cuda_s2d.s2d_conv_phase_max_cuda(
+                x, a["w_s2d"], bias, m, zp, act=c.act, out_zp_static=int(c.out_zp),
+                w_packed=a.get("w_s2d_packed"), exact_leaky=exact_leaky,
+            )
+        w_zp = None if c.symmetric_w else a["w_zp"]
+        if s.stride == 1:
             return cuda_qconv.quantized_conv2d_cuda(
-                x, a["w_i8"], a["bias_i32"], a["m"], x_zp[i],
-                stride=1, pad=s.pad, act=c.act, out_zp_static=int(c.out_zp),
-                fuse_pool=fuse_pool, out_i8=True, w_packed=a.get("w_packed"),
+                x, a["w_i8"], bias, m, zp, stride=1, pad=s.pad, act=c.act,
+                out_zp_static=int(c.out_zp), fuse_pool=i in fused, out_i8=True,
+                w_packed=a.get("w_packed"), w_zp=w_zp, carrier=carrier, exact_leaky=exact_leaky,
             )
         if x.is_cuda:
-            _unsupported(
-                f"layer {i}: stride-{s.stride} or asymmetric conv on CUDA",
-                "ROADMAP: K1 remaining coverage",
-            )
+            _unsupported(f"layer {i}: stride-{s.stride} conv on CUDA", "ROADMAP: the yolov3 slice")
         return qconv.quantized_conv2d(
-            x, a["w_i8"], a["bias_i32"], a["m"], x_zp[i], a["w_zp"], int(c.out_zp),
-            stride=s.stride, pad=s.pad, act=c.act, symmetric=c.symmetric_w, out_i8=True,
+            x, a["w_i8"], bias, m, zp, a["w_zp"], int(c.out_zp), stride=s.stride, pad=s.pad,
+            act=c.act, symmetric=c.symmetric_w, out_i8=True, carrier=carrier,
+            exact_leaky=exact_leaky,
         )
 
     def forward(arrays, x):
+        dyn = None
         if x.dtype == torch.uint8:
-            # raw pixel codes: fold the /255 normalization into the scale
-            x = _quantize_input(x.to(torch.float32), program.in_scale * 255.0, program.in_zp)
+            if dynamic_input:
+                x = x.to(torch.float32) * _f32(1.0 / 255.0)
+            else:
+                # raw pixel codes: fold the /255 normalization into the scale
+                x = _quantize_input(x.to(torch.float32), program.in_scale * 255.0, program.in_zp)
+        if dynamic_input:
+            scale, zp = _dynamic_input_qp(x)
+            x = _quantize_input_dynamic(x, scale, zp)
+            bias, m = _dyn_bias_m(arrays[0], cfg[0].symmetric_w, k_elems0, scale, zp)
+            dyn = ((zp - 128.0).to(torch.int32), bias, m)
         elif x.dtype != torch.int8:
             x = _quantize_input(x, program.in_scale, program.in_zp)
         outputs = []
@@ -176,8 +273,10 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 outputs.append(outputs[-1])
                 continue
             if c.kind == "qconv":
-                y = conv(i, c, arrays[i], x, i in fused)
-                skip_next = i in fused
+                a = arrays[i]
+                zp, bias, m = dyn if (dyn is not None and i == 0) else (x_zp[i], a["bias_i32"], a["m"])
+                y = conv(i, c, a, x, zp, bias, m)
+                skip_next = i in fused or i in s2d
                 if c.quant_stop:
                     y = _dequant_i8(y, c.out_scale, c.out_zp)
             elif c.kind == "maxpool":
@@ -211,25 +310,59 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
 
 class Engine:
     """Batched quantized-inference engine for one converted program on one
-    torch device (``"cpu"`` runs the plain versions, ``"cuda"`` the kernel).
+    torch device: the GPU unless ``device`` says otherwise (``"cpu"`` runs
+    the plain versions of the kernels).
 
     predict() runs image batch -> decoded (boxes, objectness, class_probs)
     top-k on the device and copies only that to the host.
     """
 
-    def __init__(self, program: IntProgram, max_det: int = 256, device="cpu",
+    def __init__(self, program: IntProgram, max_det: int = 256, device=None,
                  carrier: str = "int8", use_s2d: bool = False,
                  dynamic_input: bool = False, approx_topk: bool = False,
-                 exact_leaky: bool = False):
+                 exact_leaky: bool = False, arrays=None):
         if approx_topk:
             _unsupported("approx_topk", "ROADMAP queue 1.4")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Engine runs on the GPU unless asked otherwise, and "
+                    "torch.cuda.is_available() is false; pass device='cpu' "
+                    "to run the plain versions on the CPU"
+                )
+            device = "cuda"
         self.program = program
         self.max_det = max_det
         self.device = torch.device(device)
-        self._fwd = build_forward(program, use_s2d=use_s2d, carrier=carrier,
-                                  dynamic_input=dynamic_input, exact_leaky=exact_leaky)
-        self._fwd_all = build_forward(program, return_outputs=True)
-        self.arrays = device_arrays(program, self.device)
+        self.options = dict(use_s2d=use_s2d, carrier=carrier,
+                            dynamic_input=dynamic_input, exact_leaky=exact_leaky)
+        self._fwd = build_forward(program, **self.options)
+        self._fwd_all = build_forward(program, return_outputs=True, **self.options)
+        # ``arrays``: device arrays to share (the at_size cache)
+        self.arrays = arrays if arrays is not None else device_arrays(program, self.device)
+        self._head_specs = [s for s in program.net.specs if isinstance(s, HEAD_SPECS)]
+        self._size_cache: dict[tuple[int, int], Engine] = {}
+
+    def at_size(self, height: int, width: int | None = None) -> "Engine":
+        """The engine for another input resolution, cached per size.  The
+        integer program is shape-free, so each size shares this engine's
+        device arrays; the native size returns ``self``."""
+        width = width or height
+        net = self.program.net
+        if (height, width) == (net.height, net.width):
+            return self
+        if height % 32 or width % 32:
+            raise ValueError(
+                f"input size must be a multiple of 32 (yolo head grids), got {height}x{width}"
+            )
+        eng = self._size_cache.get((height, width))
+        if eng is None:
+            prog = dataclasses.replace(
+                self.program, net=dataclasses.replace(net, height=height, width=width))
+            eng = Engine(prog, max_det=self.max_det, device=self.device,
+                         arrays=self.arrays, **self.options)
+            self._size_cache[(height, width)] = eng
+        return eng
 
     def _input(self, images: np.ndarray) -> torch.Tensor:
         net = self.program.net
@@ -242,23 +375,35 @@ class Engine:
             raise ValueError(f"images must be float32 or uint8, got {images.dtype}")
         return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
 
-    def _run(self, images: np.ndarray):
+    def _run(self, images: np.ndarray, flip: bool):
         with torch.inference_mode():
-            heads = self._fwd(self.arrays, self._input(images))
+            x = self._input(images)
+            if flip:
+                # flip TTA: the batch and its mirror in one doubled batch, the
+                # raw yolo heads averaged; other heads keep the unflipped one
+                n = x.shape[0]
+                heads = self._fwd(self.arrays, torch.cat([x, x.flip(2)]))
+                heads = [
+                    detect.flip_average_head(h[:n], h[n:], spec.classes)
+                    if isinstance(spec, YoloSpec) else h[:n]
+                    for h, spec in zip(heads, self._head_specs)
+                ]
+            else:
+                heads = self._fwd(self.arrays, x)
             boxes, obj, cls = detect.decode_all_heads(heads, self.program.net)
             return detect.top_k_detections(boxes, obj, cls, self.max_det)
 
     def predict(self, images: np.ndarray, flip: bool = False):
         """images: (N, H, W, 3) float32 letterboxed to the network size, or
-        uint8 pixel codes.  Returns numpy (boxes, obj, cls) top-k."""
+        uint8 pixel codes.  ``flip`` averages the yolo heads over the
+        horizontal mirror (the reference's `detector valid2`).  Returns numpy
+        (boxes, obj, cls) top-k."""
         return self.predict_async(images, flip=flip)()
 
     def predict_async(self, images: np.ndarray, flip: bool = False):
         """Enqueue a batch on the current CUDA stream and return a zero-arg
         resolver that waits for it and copies (boxes, obj, cls) to the host."""
-        if flip:
-            _unsupported("flip TTA", "ROADMAP queue 1.3")
-        outs = self._run(images)
+        outs = self._run(images, flip)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()

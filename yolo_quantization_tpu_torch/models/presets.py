@@ -3,6 +3,10 @@
 ``flagship_program`` builds the reference benchmark config — quantized
 yolov3-tiny, 5 classes, relu6, per-channel symmetric int8 weights — from
 seeded random weights and fixed synthetic quantization ranges.
+``parity_program`` builds the configuration that matches the darknet C
+binary byte for byte: leaky yolov3-tiny with the reference's asymmetric
+weights and raw-byte route concat (run it with ``dynamic_input=True`` and
+``exact_leaky=True``).
 """
 
 from __future__ import annotations
@@ -45,3 +49,10 @@ def flagship_program(classes: int = 5, size: int = 416, seed: int = 0) -> IntPro
     net = flagship_network(classes, size)
     params = init_params_numpy(seed, net)
     return convert(net, params, synthetic_quant_state(net))
+
+
+def parity_program(classes: int = 5, size: int = 416, seed: int = 0) -> IntProgram:
+    net = zoo.yolov3_tiny(classes=classes, activation="leaky", width=size, height=size)
+    params = init_params_numpy(seed, net)
+    return convert(net, params, synthetic_quant_state(net), symmetric_weights=False,
+                   route_rescale=False)

@@ -3,9 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` file with an ``extern "C"`` entry,
 compiled for Hopper (``sm_90a``) by ``nvcc`` into
 ``build/torch_kernels/libyoloq_<name>.<hash>.so`` at the repository root and bound
-with ``ctypes``.  The hash covers the source and the flags, so an edited
-source rebuilds on first use and an unchanged one loads the cached library.
-Nothing here runs at import time; the first kernel call builds.
+with ``ctypes``.  The hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source rebuilds on first use and an
+unchanged one loads the cached library.  ``build_all`` starts one nvcc per
+source at once.  Nothing here runs at import time; the first kernel call
+builds.
 """
 
 from __future__ import annotations
@@ -44,31 +46,48 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libyoloq_{name}.{key}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libyoloq_{name}.{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the hashed library already exists."""
-    out = library_path(name)
-    if out.exists():
-        build_seconds.setdefault(name, 0.0)
-        return out
+def build_all(names) -> None:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing, one
+    nvcc process per source, all started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True, timeout=600,
-    )
-    build_log[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{build_log[name]}")
-    os.replace(tmp, out)
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                build_seconds.setdefault(name, 0.0)
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            proc = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            procs[name] = (proc, tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            build_log[name] = proc.communicate(timeout=600)[0]
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(name)
+            else:
+                os.replace(tmp, out)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"csrc/{n}.cu:\n{build_log[n]}" for n in failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -76,6 +95,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib

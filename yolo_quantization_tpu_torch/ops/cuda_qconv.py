@@ -1,9 +1,11 @@
 """Hand-written CUDA int8 conv kernel (``csrc/qconv.cu``) and its wrapper.
 
 Replaces ``yolo_quantization_tpu/ops/pallas_qconv.py::pallas_quantized_conv2d``:
-a fused stride-1 conv with symmetric int8 weights, the requant epilogue,
-and optionally the following darknet 2x2/s2 maxpool.  Unlike the Pallas
-kernel it takes any input channel count, including the 3-channel stem.
+a fused stride-1 conv, the requant epilogue, and optionally the following
+darknet 2x2/s2 maxpool.  Unlike the Pallas kernel it takes any input channel
+count, including the 3-channel stem, and the options the reference engine
+ran on XLA: asymmetric weights, a per-image input zero point and (N, Co)
+bias/m (``dynamic_input``), ``exact_leaky`` and the int16 carrier.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/qconv.py``); on a CUDA tensor it launches the kernel or raises —
@@ -32,8 +34,9 @@ from yolo_quantization_tpu_torch.ops.qconv import (
 launches = 0  # kernel launches since import (or since a caller reset it)
 _launches_lock = threading.Lock()  # the server's threads launch concurrently
 
-_ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6)
+ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6)
 _MAX_K = 3
+_CARRIERS = ("int8", "int16")
 
 
 def _library() -> ctypes.CDLL:
@@ -41,7 +44,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.yq_qconv
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     return lib
 
 
@@ -60,13 +63,43 @@ def pack_weights(w_i8: torch.Tensor) -> torch.Tensor:
     return w.contiguous()
 
 
-def _check(name, t: torch.Tensor, dtype, shape, device):
+def check_tensor(name, t: torch.Tensor, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def per_image_zp(x_zp_i32, n: int):
+    """The input zero point as an int, or as an (n,) int32 tensor when it
+    is one per image (``dynamic_input``)."""
+    if isinstance(x_zp_i32, torch.Tensor) and x_zp_i32.ndim == 1:
+        if x_zp_i32.shape[0] != n:
+            raise ValueError(f"x_zp: {x_zp_i32.shape[0]} zero points for {n} images")
+        return x_zp_i32
+    return int(x_zp_i32)
+
+
+def zero_point_args(x_zp, n: int, dev) -> tuple[int | None, int]:
+    """The kernels' (per-image pointer, static value) pair for the input
+    zero point returned by ``per_image_zp``."""
+    if isinstance(x_zp, torch.Tensor):
+        check_tensor("x_zp", x_zp, torch.int32, (n,), dev)
+        return x_zp.data_ptr(), 0
+    if not -128 <= x_zp <= 127:
+        raise ValueError(f"input zero point {x_zp} out of range")
+    return None, x_zp
+
+
+def check_bias_m(bias_i32: torch.Tensor, m: torch.Tensor, n: int, co: int, dev) -> bool:
+    """Validate (Co,) or per-image (N, Co) bias/m; True when per image."""
+    per_image = bias_i32.ndim == 2
+    shape = (n, co) if per_image else (co,)
+    check_tensor("bias_i32", bias_i32, torch.int32, shape, dev)
+    check_tensor("m", m, torch.float32, shape, dev)
+    return per_image
 
 
 def quantized_conv2d_cuda(
@@ -83,20 +116,26 @@ def quantized_conv2d_cuda(
     fuse_pool: bool = False,
     out_i8: bool = False,
     w_packed: torch.Tensor | None = None,
+    w_zp: torch.Tensor | None = None,
+    exact_leaky: bool = False,
+    carrier: str = "int8",
 ) -> torch.Tensor:
-    """Fused integer conv (symmetric weights, stride 1): the kernel's argument
-    list is the Pallas kernel's.  ``w_packed`` is ``pack_weights(w_i8)``,
-    precomputed by callers that run the same weights repeatedly.
+    """Fused integer conv (stride 1): the kernel's argument list is the
+    Pallas kernel's plus the reference engine's options.  ``w_packed`` is
+    ``pack_weights(w_i8)``, precomputed by callers that run the same weights
+    repeatedly.
 
     x_u8: (N,H,W,Ci) uint8 codes or shifted int8; w_i8: (K,K,Ci,Co) int8;
-    bias_i32: (Co,) int32; m: (Co,) float32; x_zp_i32: the shifted input zero
-    point.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with ``out_i8``, pooled
-    to (N,Ho/2,Wo/2,Co) with ``fuse_pool``.
+    bias_i32: (Co,) int32 or per image (N, Co); m: float32, same shape;
+    x_zp_i32: the shifted input zero point, an int or per image an (N,)
+    int32 tensor; w_zp: (Co,) int32 shifted weight zero points, None for
+    symmetric weights.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with
+    ``out_i8``, pooled to (N,Ho/2,Wo/2,Co) with ``fuse_pool``.
     """
     global launches
     if stride != 1:
         raise NotImplementedError(
-            "stride 2 is not ported yet (ROADMAP: K1 remaining coverage)"
+            "stride 2 is not ported yet (ROADMAP: the yolov3 slice)"
         )
     if x_u8.dim() != 4 or w_i8.dim() != 4:
         raise ValueError(f"expected NHWC x and HWIO w, got {tuple(x_u8.shape)}, {tuple(w_i8.shape)}")
@@ -107,29 +146,28 @@ def quantized_conv2d_cuda(
         raise ValueError(f"weights {tuple(w_i8.shape)} do not fit input {tuple(x_u8.shape)}")
     if pad < 0 or h_out < 1 or w_out < 1:
         raise ValueError(f"invalid geometry: pad {pad}, output {h_out}x{w_out}")
-    if act not in _ACTS:
+    if act not in ACTS:
         raise ValueError(f"unsupported quantized activation code {act}")
+    if carrier not in _CARRIERS:
+        raise ValueError(f"unsupported conv carrier {carrier!r}")
     if fuse_pool and (h_out % 2 or w_out % 2):
         raise ValueError("fuse_pool requires even conv output dims")
-    x_zp = int(x_zp_i32)
+    x_zp = per_image_zp(x_zp_i32, n)
 
     if x_u8.device.type == "cpu":
+        kw = dict(act=act, out_i8=out_i8, carrier=carrier, exact_leaky=exact_leaky)
         if fuse_pool:
-            return quantized_conv2d_pool(
-                x_u8, w_i8, bias_i32, m, x_zp, out_zp_static,
-                pad=pad, act=act, out_i8=out_i8,
-            )
-        return quantized_conv2d(
-            x_u8, w_i8, bias_i32, m, x_zp, None, out_zp_static,
-            stride=1, pad=pad, act=act, symmetric=True, out_i8=out_i8,
-        )
+            return quantized_conv2d_pool(x_u8, w_i8, bias_i32, m, x_zp, out_zp_static,
+                                         pad=pad, w_zp_i32=w_zp, **kw)
+        return quantized_conv2d(x_u8, w_i8, bias_i32, m, x_zp, w_zp, out_zp_static,
+                                stride=1, pad=pad, symmetric=w_zp is None, **kw)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
 
     if x_u8.dtype not in (torch.uint8, torch.int8):
         raise ValueError(f"x: expected uint8/int8 codes, got {x_u8.dtype}")
-    if not -128 <= x_zp <= 127 or not 0 <= int(out_zp_static) <= 255:
-        raise ValueError(f"zero points out of range: x_zp {x_zp}, out_zp {out_zp_static}")
+    if not 0 <= int(out_zp_static) <= 255:
+        raise ValueError(f"output zero point {out_zp_static} out of range")
     if k > _MAX_K:
         raise ValueError(f"kernel size {k} > {_MAX_K}")
     if n > 65535:
@@ -138,10 +176,12 @@ def quantized_conv2d_cuda(
     x = x_u8 if x_u8.dtype == torch.int8 else u8_to_i8(x_u8)
     if w_packed is None:
         w_packed = pack_weights(w_i8)
-    _check("x", x, torch.int8, (n, h, w, ci), dev)
-    _check("w_packed", w_packed, torch.int8, (co, k, k, -(-ci // 4) * 4), dev)
-    _check("bias_i32", bias_i32, torch.int32, (co,), dev)
-    _check("m", m, torch.float32, (co,), dev)
+    check_tensor("x", x, torch.int8, (n, h, w, ci), dev)
+    check_tensor("w_packed", w_packed, torch.int8, (co, k, k, -(-ci // 4) * 4), dev)
+    per_image = check_bias_m(bias_i32, m, n, co, dev)
+    if w_zp is not None:
+        check_tensor("w_zp", w_zp, torch.int32, (co,), dev)
+    zp_ptr, zp_static = zero_point_args(x_zp, n, dev)
     oh, ow = (h_out // 2, w_out // 2) if fuse_pool else (h_out, w_out)
     out = torch.empty((n, oh, ow, co), dtype=torch.int8 if out_i8 else torch.uint8, device=dev)
 
@@ -149,9 +189,10 @@ def quantized_conv2d_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yq_qconv(
-            x.data_ptr(), w_packed.data_ptr(), bias_i32.data_ptr(), m.data_ptr(),
-            out.data_ptr(), n, h, w, ci, co, k, pad, x_zp, int(out_zp_static),
-            act, int(out_i8), int(fuse_pool), stream,
+            x.data_ptr(), w_packed.data_ptr(), None if w_zp is None else w_zp.data_ptr(),
+            zp_ptr, bias_i32.data_ptr(), m.data_ptr(), out.data_ptr(),
+            n, h, w, ci, co, k, pad, zp_static, int(out_zp_static), act, int(exact_leaky),
+            int(out_i8), int(fuse_pool), int(per_image), int(carrier == "int16"), stream,
         )
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")

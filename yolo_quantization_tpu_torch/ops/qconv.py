@@ -1,10 +1,11 @@
-"""Integer uint8 convolution in plain PyTorch: the oracle for the CUDA kernel.
+"""Integer uint8 convolution in plain PyTorch: the oracles for the CUDA kernels.
 
 The counterpart of ``yolo_quantization_tpu/ops/qconv.py``, bit for bit:
 
 - uint8 codes are carried as int8 shifted by -128 (``u8_to_i8``), with the
   shift folded into the zero points;
-- the input is padded with its zero point;
+- the input is padded with its zero point (one per image with
+  ``dynamic_input``);
 - the int32 accumulator is a float64 ``F.conv2d`` cast to int32.  PyTorch
   has no integer convolution, and float64 is exact here: |acc| is at most
   9 * 1024 * 255 * 128 < 2^53 (TF32 switches apply to float32 only);
@@ -13,7 +14,8 @@ The counterpart of ``yolo_quantization_tpu/ops/qconv.py``, bit for bit:
   round-half-even, zero point, clamp, narrow.
 
 Layouts are the reference's: NHWC activations, HWIO weights.  These run on
-any device; ``ops/cuda_qconv.py`` holds the hand kernel for CUDA tensors.
+any device; ``ops/cuda_qconv.py`` and ``ops/cuda_s2d.py`` hold the hand
+kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -44,6 +46,18 @@ def u8_to_i8(x_u8: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_xor(x_u8, 0x80).view(torch.int8)
 
 
+def _pad_zp(xf: torch.Tensor, pad: int, x_zp_i32) -> torch.Tensor:
+    """Pad an NCHW float tensor by ``pad`` with the input zero point: a
+    scalar (int or 0-d tensor), or one per image ((N,) tensor)."""
+    if isinstance(x_zp_i32, torch.Tensor) and x_zp_i32.ndim == 1:
+        zp = x_zp_i32.to(xf.device, xf.dtype).reshape(-1, 1, 1, 1)
+        xp = F.pad(xf, (pad, pad, pad, pad))
+        interior = torch.zeros(xp.shape[2:], dtype=torch.bool, device=xf.device)
+        interior[pad : pad + xf.shape[2], pad : pad + xf.shape[3]] = True
+        return torch.where(interior, xp, zp)
+    return F.pad(xf, (pad, pad, pad, pad), value=float(int(x_zp_i32)))
+
+
 def conv_acc_int32(
     x_i8: torch.Tensor,
     w_i8: torch.Tensor,
@@ -57,19 +71,23 @@ def conv_acc_int32(
     """int32 accumulator of sum (x - zx)(w - zw[o]) over each conv window.
 
     x_i8 (N,H,W,C) and w_i8 (KH,KW,C,O) are shifted int8 codes; x_zp_i32 is
-    the shifted input zero point (int or 0-d tensor), w_zp_i32 the (O,)
-    shifted weight zero points.  As in the reference, the two static
-    correction terms live in the converter's int32 bias; only the
+    the shifted input zero point (int or 0-d tensor, or (N,) per image),
+    w_zp_i32 the (O,) shifted weight zero points.  As in the reference, the
+    two static correction terms live in the converter's int32 bias; only the
     data-dependent -zw[o]*patchsum(x) term is computed here (skipped when
     ``symmetric``).
+
+    ``carrier="int16"`` carries the codes in 16-bit containers, the
+    reference's s16 x s16 -> s32 cross-check; the float64 accumulation is
+    the same, so the result is too.
     """
-    if carrier != "int8":
-        raise NotImplementedError(
-            "carrier='int16' is not ported yet (ROADMAP: K1 remaining coverage)"
-        )
+    if carrier == "int16":
+        x_i8, w_i8 = x_i8.to(torch.int16), w_i8.to(torch.int16)
+    elif carrier != "int8":
+        raise ValueError(f"unsupported conv carrier {carrier!r}")
     xf = x_i8.permute(0, 3, 1, 2).to(torch.float64)
     if pad:
-        xf = F.pad(xf, (pad, pad, pad, pad), value=float(int(x_zp_i32)))
+        xf = _pad_zp(xf, pad, x_zp_i32)
     wf = w_i8.permute(3, 2, 0, 1).to(torch.float64)
     acc = F.conv2d(xf, wf, stride=stride).to(torch.int32)
     if not symmetric:
@@ -159,14 +177,55 @@ def quantized_conv2d_pool(
     pad: int = 0,
     act: int = ACT_LINEAR,
     out_i8: bool = False,
+    w_zp_i32: torch.Tensor | None = None,
+    carrier: str = "int8",
+    exact_leaky: bool = False,
 ) -> torch.Tensor:
-    """Symmetric stride-1 conv then the darknet 2x2/s2 maxpool: the plain
-    version of the kernel's ``fuse_pool``."""
+    """Stride-1 conv then the darknet 2x2/s2 maxpool: the plain version of
+    the kernel's ``fuse_pool``.  ``w_zp_i32`` None means symmetric weights."""
     y = quantized_conv2d(
-        x_u8, w_i8, bias_i32, m, x_zp_i32, None, out_zp,
-        stride=1, pad=pad, act=act, symmetric=True, out_i8=out_i8,
+        x_u8, w_i8, bias_i32, m, x_zp_i32, w_zp_i32, out_zp,
+        stride=1, pad=pad, act=act, symmetric=w_zp_i32 is None, out_i8=out_i8,
+        carrier=carrier, exact_leaky=exact_leaky,
     )
     return maxpool_u8(y, 2, 2, 1)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(N,H,W,C) -> (N,H/2,W/2,4C), slot (qy*2+qx)*C + c holding pixel
+    (2i+qy, 2j+qx): the layout of ``infer/convert.py::_s2d_weights``."""
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth needs even H and W, got {h}x{w}")
+    xs = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return xs.reshape(n, h // 2, w // 2, 4 * c)
+
+
+def s2d_conv_phase_max(
+    xs_i8: torch.Tensor,
+    w_s2d: torch.Tensor,
+    bias_i32: torch.Tensor,
+    m: torch.Tensor,
+    x_zp_i32,
+    out_zp,
+    *,
+    act: int = ACT_LINEAR,
+    exact_leaky: bool = False,
+) -> torch.Tensor:
+    """The s2d stem stage: a 3x3/s1 conv over the space-to-depth input
+    ``xs_i8`` (N,H2,W2,4C) with the block kernel ``w_s2d`` (3,3,4C,4O), its
+    blocks padded by 1 with the input zero point, then the max over the 4
+    output-phase groups on the int32 accumulators, then the epilogue.
+    Returns shifted int8 (N,H2,W2,O): conv -> requant -> 2x2/s2 maxpool of
+    the original graph, bit for bit (the epilogue is monotone in acc)."""
+    acc = conv_acc_int32(xs_i8, w_s2d, x_zp_i32, None, 1, 1, symmetric=True)
+    o = acc.shape[-1] // 4
+    accm = torch.maximum(
+        torch.maximum(acc[..., :o], acc[..., o : 2 * o]),
+        torch.maximum(acc[..., 2 * o : 3 * o], acc[..., 3 * o :]),
+    )
+    return requant_activate(accm, bias_i32, m, out_zp, act, out_i8=True,
+                            exact_leaky=exact_leaky)
 
 
 def fold_static_bias(bias_f, s_in, s_w, x_zp_i32, w_zp_i32, w_i8):

@@ -1,0 +1,87 @@
+"""Device-time breakdown of the engine's forward on one GPU (torch.profiler).
+
+    python -m yolo_quantization_tpu_torch.tools.profile_engine [batch ...]
+
+For the flagship, ``use_s2d`` and C-parity configurations (yolov3-tiny, 416,
+5 classes, seeded weights) at each batch (default 16 and 64): the wall time
+per forward, the summed device kernel time, the device busy share (kernel
+time over wall time of the profiled window) and the kernels that take the
+most device time.  Prints one JSON line per configuration and batch.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from yolo_quantization_tpu_torch.infer.engine import build_forward, device_arrays
+from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
+
+ITERS = 5
+
+
+def configurations():
+    flagship = flagship_program(classes=5, size=416, seed=0)
+    return {
+        "flagship": (flagship, {}),
+        "s2d": (flagship, dict(use_s2d=True)),
+        "parity": (parity_program(classes=5, size=416, seed=0),
+                   dict(dynamic_input=True, exact_leaky=True)),
+    }
+
+
+def breakdown(program, option: dict, batch: int, top: int = 6) -> dict:
+    forward = build_forward(program, **option)
+    arrays = device_arrays(program, "cuda")
+    x = torch.from_numpy(
+        np.random.default_rng(0).uniform(0, 1, (batch, 416, 416, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        for _ in range(2):  # builds the kernels, warms the allocator
+            forward(arrays, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                forward(arrays, x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    # the kernels themselves: an operator's entry repeats its kernels' time
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / ITERS
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return {
+        "wall_ms_per_forward": wall_ms,
+        "device_ms_per_forward": device_ms,
+        "busy_share": device_ms / wall_ms,
+        "top_kernels": [
+            {"name": e.key[:80], "share": e.self_device_time_total / 1e3 / ITERS / device_ms,
+             "calls_per_forward": e.count / ITERS}
+            for e in events[:top]
+        ],
+    }
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_engine: needs a CUDA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    batches = [int(a) for a in argv] or [16, 64]
+    for name, (program, option) in configurations().items():
+        for batch in batches:
+            row = {"config": name, "batch": batch, "card": card, **breakdown(program, option, batch)}
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))
