@@ -7,12 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. card identity (nvidia-smi name and power limit, torch device name);
   2. build the three kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
-     gemm_probe.cu), one nvcc each, all started together; print ptxas;
+     gemm_probe.cu), one nvcc each, all started together; print each
+     kernel's ptxas registers, spills and static shared memory, and its
+     IMMA (int8 tensor-core) and IDP (__dp4a) instructions from cuobjdump's
+     SASS; K1's int8 instantiations and orientation_a must hold IMMA, and
+     K1's symmetric ones no IDP;
   3. K1 (qconv) vs its plain PyTorch version, bit for bit: every flagship
-     conv shape at 416x416, batch 2, plain and with each reference-engine
+     conv shape at 416x416, at batch 2 plain and with each reference-engine
      option (asymmetric w_zp, per-image zp and (N,Co) bias/m, exact_leaky,
-     the int16 carrier), fused pool where the plan has it, plus edge cases
-     (co=130, partial tiles, Cin=3, K=1, every activation, ties, uint8 in);
+     the int16 carrier), and at batch 16 (the timed shapes, where the large
+     layers take the 128x128 tile) plain, asymmetric and with the parity
+     engine's options; fused pool where the plan has it; plus edge cases
+     (Co 30/130, Cin 3/6/16, M off every tile, pooled partial tiles, every
+     block tile of the launch table, K=1, every activation, ties, uint8 in);
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
      batch 2, every activation, per-image zp/bias/m, exact_leaky, non-square
      maps and partial tiles;
@@ -22,17 +29,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. engines on the GPU vs on the CPU, every layer's codes equal, float32 and
      uint8 batches of 4: the flagship (13 K1 launches per forward), the
      flagship with use_s2d (3 K2 + 10 K1), the C-parity configuration (leaky,
-     asymmetric, dynamic_input, exact_leaky; 13 K1) and the int16 carrier
+     asymmetric, dynamic_input, exact_leaky; 13 K1; also a float32 batch of
+     16, whose large layers take the 128x128 tile) and the int16 carrier
      (codes equal to the int8 engine's); each engine's predict is a main path
      with counted launches;
   7. flip TTA and at_size(320) agree between GPU and CPU, and f1_rows over
      GPU and CPU predictions gives equal counts;
   8. a Server with the (1, 4, 16) bucket ladder answers seeded requests of
      mixed sizes, float and uint8 — the serving main path;
-  9. timings with CUDA events (printed, not asserted): per-layer K1 vs plain
-     (and torch._int_mm on the 1x1 layers its shape rules allow), K2 vs K1's
-     fused stem per layer, device forwards of the three engines at batch 16
-     and 64, the probe cases vs torch._int_mm.
+  9. timings, printed and not asserted
+     (yolo_quantization_tpu_torch/tools/kernel_timings.py, which also runs
+     alone): each kernel graph-timed (its device time) beside its eager
+     time, the plain version and torch._int_mm; the engines' device
+     forwards.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,38 +60,117 @@ import time
 import numpy as np
 import torch
 
-# flagship conv layers (yolov3-tiny at 416) in layer order
-FLAGSHIP_CONVS = (0, 2, 4, 6, 8, 10, 12, 13, 14, 15, 18, 21, 22)
-S2D_LAYERS = (0, 2, 4)
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): int8 tensor cores, HBM3
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
 # decoded floats: sigmoid/exp differ between the card and the CPU by ulps
 DECODE_TOL = dict(rtol=1e-5, atol=1e-6)
+# K1's tile edges (n, h, w, ci, co, k, pad, fuse_pool), by the block tile
+# the launch table gives them on a 132-SM card: Co 30 and 130 (padded and
+# partial N tiles), Cin 3 and 6, 16, 32 and 64, M off every tile, pooled
+# layers whose last 32-row group is partial
+TILE_EDGES = (
+    # the byte gather (Cin % 16 != 0): 128x32 and 128x16
+    (1, 7, 9, 3, 30, 3, 1, False),
+    (2, 10, 6, 3, 130, 3, 1, True),
+    (3, 9, 11, 6, 30, 3, 1, False),
+    (1, 6, 14, 6, 130, 3, 1, True),
+    (2, 9, 13, 3, 16, 3, 1, False),
+    # the pooled 3-channel stem's window loader: 512x16
+    (4, 24, 24, 3, 16, 3, 1, True),
+    (3, 10, 14, 3, 16, 3, 1, True),
+    # 16-byte copies, Co <= 16: 128x16
+    (2, 26, 26, 16, 16, 3, 1, True),
+    # Co <= 32: 64x32 (fewer blocks than SMs at 128x32), then 128x32
+    (2, 13, 13, 16, 30, 1, 0, False),
+    (3, 22, 18, 16, 30, 3, 1, True),
+    (40, 13, 13, 64, 30, 3, 1, False),
+    (6, 50, 60, 16, 30, 3, 1, False),
+    # Co <= 64: 64x64, then 128x64
+    (9, 20, 20, 16, 64, 3, 1, False),
+    (2, 12, 12, 32, 64, 3, 1, True),
+    (6, 50, 60, 16, 64, 3, 1, False),
+    (27, 22, 30, 32, 64, 3, 1, True),
+    # Co > 64: 64x64, then 128x128
+    (1, 11, 5, 16, 130, 3, 1, False),
+    (1, 5, 3, 64, 130, 3, 1, False),
+    (13, 26, 26, 32, 130, 1, 0, False),
+    (7, 42, 58, 16, 130, 3, 1, True),
+)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_identity() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
+def ptxas_report(log_text: str) -> dict[str, dict]:
+    """Registers, spill bytes and static shared memory per kernel from
+    nvcc's -Xptxas -v output."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn = m.group(1)
+            out[fn] = {"registers": 0, "spill": "0/0", "smem": 0}
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[fn]["spill"] = f"{m.group(1)}/{m.group(2)}"
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn]["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                out[fn]["smem"] = int(sm.group(1))
+    return out
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time on the card: the larger of bytes over HBM rate and int8
-    operations over the tensor-core peak."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def sass_counts(lib_path) -> dict[str, dict]:
+    """IMMA (int8 tensor-core mma) and IDP (__dp4a) instructions per kernel
+    in a built library, from cuobjdump --dump-sass."""
+    from yolo_quantization_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            fn = m.group(1)
+            out[fn] = {"IMMA": 0, "IDP": 0}
+        elif fn:
+            out[fn]["IMMA"] += bool(re.search(r"\bIMMA\b", line))
+            out[fn]["IDP"] += bool(re.search(r"\bIDP\b", line))
+    return out
 
 
-def int_mm_ok(m: int, k: int, n: int) -> bool:
-    """torch._int_mm's CUDA shape rules: m > 16, k and n multiples of 8."""
-    return m > 16 and k % 8 == 0 and n % 8 == 0
+def demangle(names) -> dict[str, str]:
+    """Readable kernel names through the toolkit's cu++filt, where it has one."""
+    from yolo_quantization_tpu_torch.ops import _build
+
+    names = list(names)
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return {n: n for n in names}
+    got = subprocess.run([tool], input="\n".join(names), check=True, capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, got)) if len(got) == len(names) else {n: n for n in names}
+
+
+def phase_kernel_report(libs) -> None:
+    """Print ptxas and SASS facts per kernel; K1's int8 instantiations and
+    orientation_a must run on IMMA, and K1's symmetric int8 ones must hold
+    no IDP (no product on __dp4a)."""
+    from yolo_quantization_tpu_torch.ops import _build
+
+    for name in libs:
+        ptx = ptxas_report(_build.build_log.get(name, ""))
+        sass = sass_counts(_build.library_path(name))
+        readable = demangle(sass)
+        for fn, counts in sass.items():
+            info = ptx.get(fn, {})
+            regs = info.get("registers", "?")
+            log(f"    {name}: {readable[fn]}: {regs} registers, spill stores/loads "
+                f"{info.get('spill', '?')} B, static smem {info.get('smem', '?')} B, "
+                f"IMMA {counts['IMMA']}, IDP {counts['IDP']}")
+            if ("qconv_mma" in fn or "orientation_a" in fn) and counts["IMMA"] == 0:
+                raise AssertionError(f"{readable[fn]}: no IMMA instruction")
+            args = re.search(r"qconv_mma_kernelI((?:L[a-z]\d+E)+)E", fn)
+            asym = args and re.findall(r"L[a-z](\d+)E", args.group(1))[4] == "1"
+            if args and not asym and counts["IDP"]:
+                raise AssertionError(f"{readable[fn]}: a symmetric int8 conv runs __dp4a")
 
 
 class Errors:
@@ -99,47 +188,25 @@ class Errors:
             raise AssertionError(f"{kernel} != plain version on case {name} (max_abs_err {err})")
 
 
-def random_layer(rng, n, h, w, ci, co, k):
-    """Seeded codes, weights, bias and multipliers with outputs spread over
-    the code range (acc std ~ sqrt(K*K*Ci) * 73^2)."""
-    x = rng.integers(-128, 128, (n, h, w, ci), dtype=np.int8)
-    wt = rng.integers(-127, 128, (k, k, ci, co)).astype(np.int8)
-    bias = rng.integers(-(2**14), 2**14, (co,)).astype(np.int32)
-    m = (rng.uniform(0.5, 2.0, (co,)) * 40.0 / (np.sqrt(k * k * ci) * 5300.0)).astype(np.float32)
-    return x, wt, bias, m
-
-
-def flagship_layers():
-    """(layer, h, w, ci, co, k, pad, act, in the fusion plan) of the 13 convs."""
-    from yolo_quantization_tpu_torch.infer.engine import fusion_plan
-    from yolo_quantization_tpu_torch.models.presets import flagship_network, flagship_program
-    from yolo_quantization_tpu_torch.ops.qconv import ACT_LINEAR, ACT_RELU6
-
-    net = flagship_network(5, 416)
-    shapes = net.shapes()
-    plan = fusion_plan(flagship_program(5, 416))
-    out = []
-    for i in FLAGSHIP_CONVS:
-        s = net.specs[i]
-        h, w, ci = shapes[i - 1] if i > 0 else (416, 416, 3)
-        act = ACT_RELU6 if s.activation == "relu6" else ACT_LINEAR
-        out.append((i, h, w, ci, s.filters, s.size, s.pad, act, i in plan))
-    return out
-
-
 def conv_cases():
     """(name, n, h, w, ci, co, k, pad, act, out_i8, fuse_pool, variant).
 
     Variants: "" plain symmetric; "asym" weight zero points; "dyn" per-image
     zero points and (N,Co) bias/m; "exact" double-rounded leaky; "int16" the
-    int16 carrier; "all" every option at once; "pow2_m" power-of-two
+    int16 carrier; "all" every option at once; "parity" the parity engine's
+    options (asym, dyn and exact on the int8 carrier); "pow2_m" power-of-two
     multipliers (ties for rint); "uint8" uint8 input codes.
     """
     from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_LINEAR, ACT_RELU, ACT_RELU6
+    from yolo_quantization_tpu_torch.tools.kernel_timings import flagship_layers
 
     cases = []
     for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
         cases.append((f"layer{i}", 2, h, w, ci, co, k, pad, act, True, fused, ""))
+        cases.append((f"layer{i}_b16", 16, h, w, ci, co, k, pad, act, True, fused, ""))
+        cases.append((f"layer{i}_b16_asym", 16, h, w, ci, co, k, pad, act, True, fused, "asym"))
+        cases.append((f"layer{i}_b16_parity", 16, h, w, ci, co, k, pad, ACT_LEAKY, True, fused,
+                      "parity"))
         if fused:
             cases.append((f"layer{i}_unfused", 2, h, w, ci, co, k, pad, act, True, False, ""))
         for variant in ("asym", "dyn", "exact", "int16"):
@@ -167,14 +234,20 @@ def conv_cases():
         ("all_k1_ci256", 2, 13, 13, 256, 30, 1, 0, ACT_LEAKY, True, False, "all"),
         ("all_ties_pow2_m", 2, 26, 26, 64, 48, 3, 1, ACT_LEAKY, True, True, "all_pow2_m"),
     ]
+    for j, (n, h, w, ci, co, k, pad, pool) in enumerate(TILE_EDGES):
+        for variant in ("", "asym"):
+            cases.append((f"edge{j}_{variant or 'sym'}", n, h, w, ci, co, k, pad, ACT_LEAKY, True,
+                          pool, variant))
     return cases
 
 
 def phase_k1(cuda_qconv, qconv, rng, errors):
+    from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
+
     cases = conv_cases()
     for (name, n, h, w, ci, co, k, pad, act, out_i8, pool, variant) in cases:
         x, wt, bias, m = random_layer(rng, n, h, w, ci, co, k)
-        dyn = variant in ("dyn", "all", "all_pow2_m")
+        dyn = variant in ("dyn", "all", "all_pow2_m", "parity")
         if "pow2_m" in variant:
             m = np.full((co,), 2.0**-12, np.float32)  # many exact .5 ties for rint
         if dyn:
@@ -185,8 +258,8 @@ def phase_k1(cuda_qconv, qconv, rng, errors):
         x_zp = (rng.integers(-128, 128, (n,)).astype(np.int32) if dyn
                 else int(rng.integers(-128, 128)))
         w_zp = (rng.integers(-128, 128, (co,)).astype(np.int32)
-                if variant in ("asym", "all", "all_pow2_m") else None)
-        opts = dict(exact_leaky=variant in ("exact", "all", "all_pow2_m"),
+                if variant in ("asym", "all", "all_pow2_m", "parity") else None)
+        opts = dict(exact_leaky=variant in ("exact", "all", "all_pow2_m", "parity"),
                     carrier="int16" if variant in ("int16", "all", "all_pow2_m") else "int8")
         out_zp = int(rng.integers(0, 256))
         xt = torch.from_numpy(x).cuda()
@@ -216,6 +289,7 @@ def phase_k1(cuda_qconv, qconv, rng, errors):
 def s2d_cases():
     """(name, n, h, w, ci, co, act, per-image zp/bias/m, exact_leaky)."""
     from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_LINEAR, ACT_RELU, ACT_RELU6
+    from yolo_quantization_tpu_torch.tools.kernel_timings import S2D_LAYERS, flagship_layers
 
     cases = []
     for (i, h, w, ci, co, *_rest) in flagship_layers():
@@ -234,6 +308,7 @@ def s2d_cases():
 
 def phase_k2(cuda_s2d, qconv, rng, errors):
     from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
+    from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
     cases = s2d_cases()
     for (name, n, h, w, ci, co, act, dyn, exact) in cases:
@@ -272,7 +347,7 @@ def engine_configs():
     from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
 
     flagship = flagship_program(classes=5, size=416, seed=0)
-    return flagship, {
+    return {
         "flagship": (flagship, {}, (13, 0)),
         "s2d": (flagship, dict(use_s2d=True), (10, 3)),
         "parity": (parity_program(classes=5, size=416, seed=0),
@@ -287,15 +362,17 @@ def reset_counts(cuda_qconv, cuda_s2d):
 
 
 def phase_engines(Engine, cuda_qconv, cuda_s2d, rng):
-    flagship, configs = engine_configs()
     x = rng.uniform(0, 1, (4, 416, 416, 3)).astype(np.float32)
     x_u8 = rng.integers(0, 256, (4, 416, 416, 3), dtype=np.uint8)
+    # the parity engine at batch 16 too: its large layers take K1's 128x128 tile there
+    x16 = rng.uniform(0, 1, (16, 416, 416, 3)).astype(np.float32)
     engines, main_launches, int8_outs = {}, {}, {}
-    for cname, (program, option, (k1, k2)) in configs.items():
+    for cname, (program, option, (k1, k2)) in engine_configs().items():
         eng_gpu = Engine(program, device="cuda", **option)
         eng_cpu = Engine(program, device="cpu", **option)
         engines[cname] = eng_gpu
-        for name, batch in (("float32", x), ("uint8", x_u8)):
+        batches = [("float32", x), ("uint8", x_u8)] + ([("float32", x16)] if cname == "parity" else [])
+        for name, batch in batches:
             reset_counts(cuda_qconv, cuda_s2d)
             heads_g, outs_g = eng_gpu.raw_heads(batch, return_outputs=True)
             got = (cuda_qconv.launches, cuda_s2d.launches)
@@ -314,7 +391,7 @@ def phase_engines(Engine, cuda_qconv, cuda_s2d, rng):
                 for i, (a, b) in enumerate(zip(outs_g, int8_outs[name])):
                     if not np.array_equal(a, b):
                         raise AssertionError(f"int16 carrier: layer {i} differs from the int8 engine")
-            log(f"  {cname} {name} batch of 4: all {len(outs_g)} layer outputs equal to the CPU "
+            log(f"  {cname} {name} batch of {len(batch)}: all {len(outs_g)} layer outputs equal to the CPU "
                 f"engine{' and to the int8 engine' if cname == 'int16' else ''}; "
                 f"{k1} K1 + {k2} K2 launches")
         # the engine's predict is this configuration's main path
@@ -404,186 +481,16 @@ def phase_serving(Server, Detection, cuda_qconv, cuda_s2d, engine, rng):
     return launches
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-class Totals:
-    """Summed kernel, plain, bound and library times of one kernel entry."""
-
-    def __init__(self):
-        self.ms = self.plain_ms = self.bound_ms = self.bytes_bound_ms = 0.0
-        self.library_ms: float | None = 0.0
-
-    def add(self, ms, plain_ms, bound, library_ms):
-        self.ms += ms
-        self.plain_ms += plain_ms
-        self.bound_ms += bound[0]
-        if bound[1] == "bytes":
-            self.bytes_bound_ms += bound[0]
-        # a sum over the cases is a yardstick only when every case has one
-        self.library_ms = None if library_ms is None or self.library_ms is None else self.library_ms + library_ms
-
-    def entry(self, name, source, replaces, launches, err):
-        return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": self.ms, "plain_ms": self.plain_ms,
-            "bound_ms": self.bound_ms,
-            "bound_by": "bytes" if self.bytes_bound_ms * 2 >= self.bound_ms else "operations",
-            "library_ms": self.library_ms,
-        }
-
-
-def time_k1_layers(cuda_qconv, qconv, rng, card):
-    tot = Totals()
-    log(f"  per-layer conv at batch 16 [{card}] (kernel vs plain float64 F.conv2d + requant on "
-        "the same card; torch._int_mm int8 GEMM on the 1x1 layers where its shape rules allow; "
-        "inputs warm in L2):")
-    for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
-        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, k)
-        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
-        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
-        wp = cuda_qconv.pack_weights(wt_t)
-
-        def kernel():
-            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=act,
-                                             out_zp_static=0, fuse_pool=fused, out_i8=True,
-                                             w_packed=wp)
-
-        def plain():
-            if fused:
-                qconv.quantized_conv2d_pool(xt, wt_t, b_t, m_t, 3, 0, pad=pad, act=act, out_i8=True)
-            else:
-                qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, pad=pad, act=act,
-                                       symmetric=True, out_i8=True)
-
-        k_ms = cuda_time_ms(kernel, 20)
-        p_ms = cuda_time_ms(plain, 5, warmup=1)
-        lib_ms = None
-        if k == 1 and int_mm_ok(16 * h * w, ci, co):
-            a2, b2 = xt.reshape(-1, ci), wt_t.reshape(ci, co)
-            lib_ms = cuda_time_ms(lambda: torch._int_mm(a2, b2), 20)
-        oh, ow = (h // 2, w // 2) if fused else (h, w)
-        mac = 16 * h * w * co * k * k * ci
-        bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * oh * ow * co, 2 * mac)
-        tot.add(k_ms, p_ms, bound, lib_ms)
-        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        log(f"    layer {i:2d} {h}x{w}x{ci}->{co} k{k}{' +pool' if fused else ''}: kernel "
-            f"{k_ms:.4f} ms ({mac / 1e9 / k_ms:.2f} TMAC/s), plain {p_ms:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}), _int_mm {lib} [{card}]")
-    log(f"  all 13 convs at batch 16: kernel {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms, "
-        f"bound {tot.bound_ms:.4f} ms [{card}]")
-    return tot
-
-
-def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
-    from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
-
-    tot = Totals()
-    log(f"  s2d stem (K2) vs K1's fused stem at batch 16 [{card}]:")
-    for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
-        if i not in S2D_LAYERS:
-            continue
-        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, 3)
-        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
-        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
-        ws_t = torch.from_numpy(_s2d_weights(wt)).cuda()
-        wp1, wp2 = cuda_qconv.pack_weights(wt_t), cuda_s2d.pack_weights(ws_t)
-
-        def k2():
-            cuda_s2d.s2d_conv_phase_max_cuda(xt, ws_t, b_t, m_t, 3, act=act, w_packed=wp2)
-
-        def k1():
-            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=1, act=act,
-                                             fuse_pool=True, out_i8=True, w_packed=wp1)
-
-        def plain():
-            qconv.s2d_conv_phase_max(qconv.space_to_depth(xt), ws_t, b_t, m_t, 3, 0, act=act)
-
-        # K1 and K2 in turns: k1, k2, k2, k1
-        t1a, t2a, t2b, t1b = (cuda_time_ms(f, 20) for f in (k1, k2, k2, k1))
-        k1_ms, k2_ms = (t1a + t1b) / 2, (t2a + t2b) / 2
-        p_ms = cuda_time_ms(plain, 5, warmup=1)
-        mac = 16 * (h // 2) * (w // 2) * 4 * co * 9 * 4 * ci
-        bound = bound_ms(16 * h * w * ci + 9 * 16 * ci * co + 8 * co + 16 * (h // 2) * (w // 2) * co,
-                         2 * mac)
-        tot.add(k2_ms, p_ms, bound, None)
-        log(f"    layer {i} {h}x{w}x{ci}->{co} +pool: K2 {k2_ms:.4f} ms ({mac / 1e9 / k2_ms:.2f} TMAC/s "
-            f"incl. zeros), K1 fused {k1_ms:.4f} ms, K2/K1 {k2_ms / k1_ms:.2f}x, plain {p_ms:.4f} ms, "
-            f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
-    log(f"  s2d stem layers 0/2/4 at batch 16: K2 {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms "
-        f"[{card}]")
-    return tot
-
-
-def time_engines(engines, rng, card):
-    from yolo_quantization_tpu_torch.infer.engine import build_forward
-
-    for b in (1, 16, 64):
-        x = rng.uniform(0, 1, (b, 416, 416, 3)).astype(np.float32)
-        xd = torch.from_numpy(x).cuda()
-        for cname in ("flagship", "s2d", "parity"):
-            if b == 1 and cname != "flagship":
-                continue
-            eng = engines[cname]
-            forward = build_forward(eng.program, **eng.options)
-            torch.cuda.reset_peak_memory_stats()
-
-            def fwd():
-                with torch.inference_mode():
-                    forward(eng.arrays, xd)
-
-            dev_ms = cuda_time_ms(fwd, 10)
-            line = (f"  {cname:8s} batch {b:2d}: device forward {dev_ms:.3f} ms "
-                    f"({b / dev_ms * 1e3:.1f} images/s)")
-            if cname == "flagship":
-                iters = 20 if b < 64 else 5
-                eng.predict(x)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(iters):
-                    eng.predict(x)
-                wall = (time.perf_counter() - t0) / iters
-                line += (f"; predict {b / wall:.1f} images/s ({wall * 1e3:.3f} ms per call, "
-                         "host input included)")
-            peak = torch.cuda.max_memory_allocated() / 2**20
-            log(f"{line}; peak memory {peak:.1f} MiB [{card}]")
-
-
-def time_probe(probe, results, card):
-    tots = {"a": Totals(), "b": Totals()}
-    for name, orientation, k, o, p, args, _ in results:
-        fn = probe.orientation_a if orientation == "a" else probe.orientation_b
-        ms = cuda_time_ms(lambda: fn(*args), 20)
-        p_ms = cuda_time_ms(lambda: probe.plain_matmul_i8(*args), 3, warmup=1)
-        a, b = args
-        lib_ms = None
-        if int_mm_ok(a.shape[0], a.shape[1], b.shape[1]):
-            lib_ms = cuda_time_ms(lambda: torch._int_mm(a, b), 20)
-        bound = bound_ms(p * k + k * o + p * o, 2 * p * k * o)
-        tots[orientation].add(ms, p_ms, bound, lib_ms)
-        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (m <= 16)"
-        log(f"  {name}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, _int_mm {lib}, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
-    return tots
-
-
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}; see the docstring")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from yolo_quantization_tpu_torch.infer.engine import Engine
     from yolo_quantization_tpu_torch.infer.serving import Detection, Server
     from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, qconv
+    from yolo_quantization_tpu_torch.tools import kernel_timings as timings
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
     t_start = time.perf_counter()
@@ -593,7 +500,7 @@ def main() -> int:
     torch.set_num_threads(min(8, os.cpu_count() or 1))
 
     log("phase 1: card")
-    card = card_identity()
+    card = timings.card_identity()
     kind = torch.cuda.get_device_name(0)
     log(f"  nvidia-smi: {card}; torch: {kind}; devices {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -610,8 +517,9 @@ def main() -> int:
     for name in libs:
         log(f"  {name}: nvcc {_build.build_seconds.get(name, 0.0):.2f} s")
         for line in _build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"    ptxas: {line.strip()}")
+            if "error" in line:
+                log(f"    nvcc: {line.strip()}")
+    phase_kernel_report(libs)
 
     rng = np.random.default_rng(0)
     errors = Errors()
@@ -632,10 +540,7 @@ def main() -> int:
     launches = phase_serving(Server, Detection, cuda_qconv, cuda_s2d, engines["flagship"], rng)
 
     log("phase 9: timings")
-    k1 = time_k1_layers(cuda_qconv, qconv, rng, card)
-    k2 = time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card)
-    time_engines(engines, rng, card)
-    k3 = time_probe(probe, probe_results, card)
+    k1, k2, k3 = timings.time_all(engines, probe_results, card, rng)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -658,4 +563,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

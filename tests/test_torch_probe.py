@@ -52,7 +52,9 @@ def test_cases_match_jax_formula(scale):
 
 def test_shape_rules():
     probe._check_shapes(8, 32, 16, "b")
-    for bad in ((8, 30, 16, "a"), (8, 32, 24, "a"), (6, 32, 16, "b"), (8, 512, 16, "a")):
+    probe._check_shapes(8, 128, 64, "a")
+    for bad in ((8, 30, 16, "a"), (8, 32, 24, "a"), (6, 32, 16, "b"), (8, 512, 16, "a"),
+                (8, 36, 16, "a"), (8, 32, 80, "a")):
         with pytest.raises(ValueError, match="probe kernel shapes"):
             probe._check_shapes(*bad)
     with pytest.raises(ValueError, match="orientation_a"):
@@ -67,3 +69,13 @@ def test_cuda_kernels_match_plain():
     for name, _, _, _, _, args, out in probe.run_cases("cuda", scale=16):
         assert torch.equal(out.cpu(), probe.plain_matmul_i8(*[a.cpu() for a in args])), name
     assert probe.launches == {k: v + 2 for k, v in before.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_unaligned_operand():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the alignment check guards the kernel only)")
+    x = torch.zeros(64 * 32 + 16, dtype=torch.int8, device="cuda")[1:64 * 32 + 1].view(64, 32)
+    w = torch.zeros((32, 16), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        probe.orientation_a(x, w)

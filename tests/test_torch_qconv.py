@@ -238,11 +238,81 @@ def test_int16_carrier_acc_matches_jax(rng):
 
 
 def test_pack_weights_layout():
-    w = torch.arange(2 * 2 * 3 * 5, dtype=torch.int8).reshape(2, 2, 3, 5)
+    w = torch.arange(3 * 3 * 5 * 30, dtype=torch.int32).remainder(251).sub(125).to(torch.int8)
+    w = w.reshape(3, 3, 5, 30)
     p = cuda_qconv.pack_weights(w)
-    assert p.shape == (5, 2, 2, 4) and p.is_contiguous()
-    assert torch.equal(p[..., :3], w.permute(3, 0, 1, 2))
-    assert not p[..., 3].any()
+    assert p.shape == (32, 64) == cuda_qconv.packed_shape(3, 5, 30) and p.is_contiguous()
+    # row o, column (ky*3 + kx)*Cin + ci: the HWIO flatten order, K contiguous
+    for ky, kx, ci, o in ((0, 0, 0, 0), (1, 2, 4, 7), (2, 2, 4, 29), (2, 1, 3, 13)):
+        assert p[o, (ky * 3 + kx) * 5 + ci] == w[ky, kx, ci, o]
+    assert torch.equal(p[:30, :45], w.reshape(45, 30).t())
+    assert not p[30:].any() and not p[:, 45:].any()  # Co 30 -> 32, K 45 -> 64 with zeros
+
+
+def _im2col(x_i8, k, pad, x_zp):
+    """Numpy im2col of shifted codes: rows are output pixels (n, y, x),
+    columns the window in HWIO flatten order (ky, kx, ci), padding taps at
+    the input zero point, K zero-padded to a multiple of 32."""
+    n, h, w, ci = x_i8.shape
+    xp = np.full((n, h + 2 * pad, w + 2 * pad, ci), x_zp, np.int64)
+    xp[:, pad:pad + h, pad:pad + w] = x_i8
+    ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+    cols = [xp[:, ky:ky + ho, kx:kx + wo] for ky in range(k) for kx in range(k)]
+    a = np.concatenate(cols, axis=-1).reshape(n * ho * wo, k * k * ci)
+    return np.pad(a, ((0, 0), (0, -a.shape[1] % 32))), (n, ho, wo)
+
+
+def _wrap_i32(v):
+    return ((np.asarray(v, np.int64) + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("ci", [3, 16, 64])
+def test_implicit_gemm_matches_jax_conv_acc(rng, ci, k, symmetric):
+    """The kernel's GEMM view: the im2col rows times the packed weights,
+    minus w_zp[o] times each row's sum (the patchsum, K padding at code 0),
+    equals the JAX package's conv_acc_int32."""
+    x = rng.integers(-128, 128, (2, 7, 9, ci), dtype=np.int8)
+    w = rng.integers(-128, 128, (k, k, ci, 20), dtype=np.int8)
+    w_zp = rng.integers(-128, 128, (20,)).astype(np.int32)
+    pad, x_zp = k // 2, -37
+    a, (n, ho, wo) = _im2col(x, k, pad, x_zp)
+    b = cuda_qconv.pack_weights(torch.from_numpy(w)).numpy().astype(np.int64)
+    assert b.shape == (32, a.shape[1])
+    acc = (a @ b.T)[:, :20]
+    assert not (a @ b.T)[:, 20:].any()  # padded output channels hold zero weights
+    if not symmetric:
+        acc = acc - w_zp.astype(np.int64) * a.sum(axis=1, keepdims=True)
+    got = _wrap_i32(acc).reshape(n, ho, wo, 20)
+    ref = jqconv.conv_acc_int32(jnp.asarray(x), jnp.asarray(w), jnp.int32(x_zp),
+                                jnp.asarray(w_zp), 1, pad, symmetric=symmetric)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 6, 10), (1, 14, 6), (3, 4, 4)])
+def test_pooled_row_order_matches_maxpool(rng, n, h, w):
+    """fuse_pool's GEMM row order: row 8q + w of each 32-row group is pixel q
+    (dy = q // 2, dx = q % 2) of pooled window w; the max over a window's
+    four rows is the JAX 2x2/s2 maxpool of the conv, partial last group
+    included."""
+    x = rng.integers(-128, 128, (n, h, w, 16), dtype=np.int8)
+    wt = rng.integers(-128, 128, (3, 3, 16, 8), dtype=np.int8)
+    acc = np.asarray(jqconv.conv_acc_int32(jnp.asarray(x), jnp.asarray(wt), jnp.int32(5),
+                                           jnp.zeros((8,), jnp.int32), 1, 1, symmetric=True))
+    ph, pw = h // 2, w // 2
+    windows = n * ph * pw
+    rows = 32 * -(-windows // 8)
+    r = np.arange(rows)
+    win, q = (r // 32) * 8 + r % 8, (r // 8) % 4
+    valid = win < windows
+    img, rem = np.divmod(win[valid], ph * pw)
+    py, px = np.divmod(rem, pw)
+    gemm = acc[img, 2 * py + q[valid] // 2, 2 * px + q[valid] % 2]
+    pooled = np.full((windows, 8), np.iinfo(np.int32).min, np.int32)
+    np.maximum.at(pooled, win[valid], gemm)
+    ref = np.asarray(jlayers.maxpool_u8(jnp.asarray(acc), 2, 2, 1))
+    np.testing.assert_array_equal(pooled.reshape(n, ph, pw, 8), ref)
 
 
 @pytest.mark.cuda
@@ -283,3 +353,70 @@ def test_cuda_kernel_options_match_plain(rng, variant, fuse_pool, ci):
     got = cuda_qconv.quantized_conv2d_cuda(*cu[:5], w_zp=cu[5], **call)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
+
+
+# shapes at the kernel's tile edges, by the block tile the launch table
+# gives them on a 132-SM card: Co 30 and 130 (padded and partial N tiles),
+# Ci 3 and 6, 16, 32 and 64, M not a multiple of the tile, pooled layers
+# whose last 32-row group is partial
+EDGES = [
+    # n, h, w, ci, co, k, pad, fuse_pool
+    # the byte gather (Ci % 16 != 0): 128x32 and 128x16
+    (1, 7, 9, 3, 30, 3, 1, False),
+    (2, 10, 6, 3, 130, 3, 1, True),
+    (3, 9, 11, 6, 30, 3, 1, False),
+    (1, 6, 14, 6, 130, 3, 1, True),
+    (2, 9, 13, 3, 16, 3, 1, False),
+    # the pooled 3-channel stem's window loader: 512x16
+    (3, 10, 14, 3, 16, 3, 1, True),
+    # 16-byte copies, Co <= 16: 128x16
+    (2, 26, 26, 16, 16, 3, 1, True),
+    # Co <= 32: 64x32 (fewer blocks than SMs at 128x32), then 128x32
+    (2, 13, 13, 16, 30, 1, 0, False),
+    (3, 22, 18, 16, 30, 3, 1, True),
+    (6, 50, 60, 16, 30, 3, 1, False),
+    # Co <= 64: 64x64, then 128x64
+    (9, 20, 20, 16, 64, 3, 1, False),
+    (2, 12, 12, 32, 64, 3, 1, True),
+    (27, 22, 30, 32, 64, 3, 1, True),
+    # Co > 64: 64x64, then 128x128
+    (1, 11, 5, 16, 130, 3, 1, False),
+    (1, 5, 3, 64, 130, 3, 1, False),
+    (13, 26, 26, 32, 130, 1, 0, False),
+    (7, 42, 58, 16, 130, 3, 1, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asym", [False, True])
+@pytest.mark.parametrize("n,h,w,ci,co,k,pad,fuse_pool", EDGES)
+def test_cuda_kernel_tile_edges(rng, n, h, w, ci, co, k, pad, fuse_pool, asym):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    x = rng.integers(-128, 128, (n, h, w, ci), dtype=np.int8)
+    wt = rng.integers(-128, 128, (k, k, ci, co), dtype=np.int8)
+    bias = rng.integers(-(2**14), 2**14, (co,)).astype(np.int32)
+    m = (rng.uniform(0.5, 2.0, (co,)) * 40.0 / (np.sqrt(k * k * ci) * 5300.0)).astype(np.float32)
+    w_zp = rng.integers(-128, 128, (co,)).astype(np.int32) if asym else None
+    args = [torch.from_numpy(a) for a in (x, wt, bias, m)]
+    zp_t = None if w_zp is None else torch.from_numpy(w_zp)
+    call = dict(pad=pad, act=ACT_LEAKY, out_zp_static=77, fuse_pool=fuse_pool, out_i8=True)
+    ref = cuda_qconv.quantized_conv2d_cuda(*args, -45, w_zp=zp_t, **call)
+    got = cuda_qconv.quantized_conv2d_cuda(*[a.cuda() for a in args], -45,
+                                           w_zp=None if zp_t is None else zp_t.cuda(), **call)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_unaligned_input():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the alignment check guards the kernel only)")
+    n, h, w, ci, co = 1, 6, 6, 16, 16
+    flat = torch.zeros(n * h * w * ci + 16, dtype=torch.int8, device="cuda")
+    x = flat[1:1 + n * h * w * ci].view(n, h, w, ci)  # contiguous, one byte off
+    wt = torch.zeros((3, 3, ci, co), dtype=torch.int8, device="cuda")
+    bias = torch.zeros(co, dtype=torch.int32, device="cuda")
+    m = torch.ones(co, dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cuda_qconv.quantized_conv2d_cuda(x, wt, bias, m, 0, pad=1)

@@ -1,4 +1,7 @@
-// Device helpers shared by the port's int8 conv kernels (qconv.cu, s2d_qconv.cu).
+// Device helpers shared by the port's int8 kernels (qconv.cu, s2d_qconv.cu,
+// gemm_probe.cu): the requant epilogue, the code words of the scalar paths,
+// and inline-PTX wrappers of the int8 tensor-core pieces (mma.sync s8,
+// ldmatrix, cp.async).
 //
 // The epilogue is bit-exact with the reference's XLA path
 // (yolo_quantization_tpu/ops/qconv.py::requant_activate): (float) is a
@@ -87,5 +90,56 @@ struct Word {
     return __dp4a(a, 0x01010101, acc);
   }
 };
+
+// ---- int8 tensor cores (sm_80+ warp-level PTX; CUTLASS's headers would
+// lengthen every build) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// d += a . b on one warp: a is 16x32 s8 (row-major fragment, 4 words), b is
+// 32x8 s8 (column-major fragment, 2 words), d 16x8 s32.  Fragment layout,
+// with g = lane / 4 and t = lane % 4: a[0] = row g, k 4t..4t+3; a[1] = row
+// g+8, same k; a[2], a[3] = the same rows at k 16+4t..; b[0] = column g,
+// k 4t..4t+3; b[1] = column g, k 16+4t..; d[0..1] = row g, columns 2t, 2t+1;
+// d[2..3] = row g+8.  Without .satfinite the int32 sums wrap.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices (8 rows of 16 bytes each) from shared memory; lane l
+// gives the row address of matrix l / 8, row l % 8 (16-byte aligned), and
+// receives word l % 4 of row l / 4 of each matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes global -> shared without registers; src_bytes 0 writes zeros
+// (and reads nothing).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// the same through L1 (.ca), for data that neighbouring rows read again
+__device__ __forceinline__ void cp_async16_l1(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 }  // namespace yq

@@ -8,38 +8,67 @@
 // the int32 accumulators before the epilogue (exact: the epilogue is monotone
 // nondecreasing in the corrected accumulator, since m > 0).
 //
-// Options, all of one kernel (template or runtime parameters):
-//   - asymmetric weights (ASYM): acc -= w_zp[o] * patchsum, the window sum
-//     of the staged codes, padding taps included (yolo_quantization_tpu/ops/
-//     qconv.py::conv_acc_int32); __dp4a(a, 0x01010101, ps) sums a word;
-//   - a per-image input zero point (an (N,) device tensor) for the padding;
-//   - per-image (N, Co) bias and m, read by pointer (no host sync);
-//   - exact_leaky, darknet's double-rounded leaky;
-//   - the int16 carrier (I16): codes staged as int16 pairs and multiplied
-//     with plain int32 multiply-adds, a cross-check of the __dp4a path that
-//     must give the same bits.
+// Options: asymmetric weights (ASYM: acc -= w_zp[o] * patchsum, the window
+// sum of the codes, padding taps included; yolo_quantization_tpu/ops/
+// qconv.py::conv_acc_int32), a per-image input zero point (an (N,) device
+// tensor) for the padding, per-image (N, Co) bias and m read by pointer,
+// exact_leaky, and the int16 carrier.
 //
-// What bounds it on the H100: int8 multiply-accumulates on the large 3x3
-// layers (13x13 and 26x26 maps, up to 512->1024 channels), bytes on the
-// 416^2 / 208^2 stem layers, whose few channels do little work per byte
-// moved.  fuse_pool therefore keeps the pre-pool tensor (4x the pooled
-// bytes) out of device memory on exactly those stem layers.
+// The int8 carrier is an implicit GEMM on the int8 tensor cores.  It
+// replaces a __dp4a kernel that ran at about 2% of the card's int8 roofline.
+//   - GEMM view: M = output pixels, N = Co, K = k*k*Ci in HWIO flatten order
+//     (tap-major, channel-minor), padded to 32.  B is the packed weights
+//     (Co_pad, K_pad), K contiguous (ops/cuda_qconv.py::pack_weights).
+//   - What bounds it on the H100: int8 operations on the 13x13 and 26x26
+//     layers (Ci >= 256: K >= 1,152), bytes on the 416^2 / 208^2 stem layers
+//     (K = 32 and 160) and on the narrow 1x1 heads.  The tensor cores take
+//     the first kind; the second is served by reading each input byte from
+//     device memory about once (the k*k window overlap hits L1/L2) and by
+//     fusing the pool, which keeps the 4x larger pre-pool tensor out of
+//     device memory on exactly those stem layers.
+//   - Products: mma.sync m16n8k32 s8 (common.cuh::mma_s8), operands from
+//     shared memory through ldmatrix.  Each shared row is 64 K-bytes plus 16
+//     bytes of padding, which puts the 8 rows of an ldmatrix phase on 8
+//     distinct 16-byte bank groups.
+//   - Staging: a ring of up to 4 64-byte K slabs in dynamic shared memory
+//     (above 48 KB, hence cudaFuncSetAttribute), filled with 16-byte
+//     cp.async copies while the warps multiply an earlier slab.  A layer
+//     with fewer slabs (the stem has one) gets fewer slots, so more blocks
+//     fit on an SM.
+//   - The A tile is an implicit im2col: each row is one output pixel.  Three
+//     loaders (template MODE):
+//     kVec (Ci % 16 == 0): a 16-byte chunk of K is one tap's 16 channels,
+//       copied straight from NHWC; through L1 (cp.async.ca) when Ci <= 32,
+//       where the 3x3 windows of a block's rows overlap 9-fold.
+//     kStem (the 3-channel 3x3 stem with its pool fused): each thread loads
+//       one pooled window's 4x4x3 input patch once, 48 bytes instead of
+//       4 x 27, and builds its four pixels' 27 codes in registers.
+//     kByte (any other Ci): byte by byte through registers, a row per thread.
+//     A code whose pixel lies outside the map is the input zero-point code
+//     (per image), stored explicitly: cp.async's zero-fill writes 0, which
+//     is wrong whenever zp != 0.  K padding holds code 0 in A and 0 in B.
+//   - Block tile from (M, N): a fixed table (launch_tile) so that the 13x13
+//     layers (M = 2,704 at batch 16) still give every SM of the card (132 on
+//     an H100 SXM, read per device) a block; 128x128 for the large layers,
+//     512x16 for the stem (a window a thread).
+//   - fuse_pool: the rows are ordered so that in each 32-row group row 8q + w
+//     is pixel q of pooled window w.  In the m16n8 accumulator layout a
+//     thread holds rows g and g+8 of two m16 tiles, i.e. all four pixels of
+//     window g, and takes the max in registers before the epilogue.
+//   - ASYM: the patchsum is the row sum of the staged A tile: a thread's A
+//     fragments are 16 of the 32 bytes of rows g and g+8 of each m16 tile,
+//     summed with __dp4a(a, 0x01010101, .) and completed across the 4
+//     threads of its quad by shuffles.  No product runs on __dp4a.
+//   - Integer sums do not depend on their order (int32 wraps alike), so the
+//     tile shapes and K order are free; bit-exactness rests on yq::requant.
 //
-// Design (a simple first version; mma/wgmma s8, TMA and tuning come later):
-//   - one block of 256 threads per (output spatial tile, tile of TC output
-//     channels, image);
-//   - input channels are walked in chunks of 16 shared-memory words (64
-//     int8 channels, or 32 with I16); each chunk stages the zero-point-padded
-//     input window (padding done on load, no padded copy in device memory)
-//     and the chunk's weights in shared memory;
-//   - each thread owns one 2x2 output window and 4 output channels (16 int32
-//     accumulators) and accumulates word by word;
-//     Cin % 4 != 0 (the 3-channel stem) is staged byte-wise with zero
-//     channel padding, matching the zero-padded packed weights;
-//   - weights arrive repacked as (Co, K, K, Cin_pad4) int8, i.e. int32
-//     words of 4 input channels (see ops/cuda_qconv.py::pack_weights).
+// The int16 carrier (carrier="int16", the reference's s16 x s16 -> s32 MKL
+// cross-check) keeps a scalar kernel: Hopper has no s16 tensor-core mma, and
+// its point is arithmetic different from the int8 path.  Codes are staged as
+// int16 pairs and multiplied with plain int32 multiply-adds.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -47,18 +76,411 @@
 namespace {
 
 using yq::Epilogue;
-using yq::Word;
 
-constexpr int kThreads = 256;
-constexpr int kChunkWords = 16;  // shared-memory words per position and stage
 constexpr int kMaxK = 3;
+constexpr int kBK = 64;              // K bytes per stage: two m16n8k32 steps
+constexpr int kRowBytes = kBK + 16;  // shared row stride; +16 spreads ldmatrix rows over banks
+constexpr int kStages = 4;
+constexpr int kMaxDevices = 64;      // per-device launch facts below
+constexpr int kFar = INT_MIN / 4;    // a row past the end: every tap lies outside the map
+constexpr int kVec = 0, kStem = 1, kByte = 2;  // A loaders
+
+struct Params {
+  const int8_t* x;          // (N, H, W, Ci) shifted int8 codes
+  const int8_t* w;          // (Co_pad, K_pad) packed int8 weights, K = (ky, kx, ci)
+  const int32_t* w_zp;      // (Co,) shifted weight zero points (ASYM only)
+  const int32_t* x_zp_img;  // (N,) per-image input zero point, or null
+  Epilogue e;
+  uint8_t* out;             // (N, Ho, Wo, Co), or pooled (N, Ho/2, Wo/2, Co)
+  int h, w_in, ci, co, k, pad, h_out, w_out;
+  int k_real, k_pad, co_pad;  // GEMM depth k*k*Ci, padded to 32; Co padded to 16
+  int x_zp, pool;
+  int outs;                 // output pixels: N*Ho*Wo, or pooled windows
+  int rows;                 // GEMM rows: outs, or 32 per 8 windows with pool
+  int tiles_x;              // int16 kernel: spatial tiles along W
+};
+
+// The output pixel of GEMM row r; false past the end.  With pool, row 8q + w
+// of each 32-row group is pixel q (dy = q / 2, dx = q % 2) of window w.
+__device__ __forceinline__ bool row_pixel(const Params& p, int r, int& img, int& oy, int& ox) {
+  if (p.pool) {
+    const int win = (r >> 5) * 8 + (r & 7), q = (r >> 3) & 3;
+    const int pw = p.w_out >> 1, phw = (p.h_out >> 1) * pw;
+    if (win >= p.outs) return false;
+    img = win / phw;
+    const int rem = win - img * phw, py = rem / pw;
+    oy = 2 * py + (q >> 1);
+    ox = 2 * (rem - py * pw) + (q & 1);
+    return true;
+  }
+  if (r >= p.outs) return false;
+  const int hw = p.h_out * p.w_out;
+  img = r / hw;
+  const int rem = r - img * hw;
+  oy = rem / p.w_out;
+  ox = rem - oy * p.w_out;
+  return true;
+}
+
+// The ring slots a layer uses: one per K slab, at most kStages.
+__host__ __device__ __forceinline__ int ring_slots(int k_pad) {
+  const int slabs = (k_pad + kBK - 1) / kBK;
+  return slabs < kStages ? slabs : kStages;
+}
+
+// BM x BN block tile, WM x WN warps, each warp a (BM/WM) x (BN/WN) tile of
+// m16n8 accumulators; MODE the A loader.  The symmetric stem is held to 128
+// registers (4 blocks an SM); the asymmetric one would spill there.
+template <int BM, int BN, int WM, int WN, bool ASYM, int MODE>
+__global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
+    qconv_mma_kernel(const Params p) {
+  constexpr int kThreads = WM * WN * 32;
+  constexpr int TM = BM / WM, TN = BN / WN;
+  constexpr int MI = TM / 16, NI = TN / 8;
+  constexpr bool VEC = MODE == kVec;
+  constexpr int A_ROWS = VEC ? kThreads / 4 : kThreads;  // rows one pass of the A loader covers
+  constexpr int A_ITERS = MODE == kStem ? 1 : BM / A_ROWS;
+  static_assert(TM % 32 == 0 && NI % 2 == 0 && BM % A_ROWS == 0, "unsupported tile");
+  static_assert(MODE != kByte || A_ITERS == 1, "the byte gather takes one row per thread");
+  static_assert(MODE != kStem || BM == 4 * kThreads, "the stem loader takes one window per thread");
+
+  const int nk = (p.k_pad + kBK - 1) / kBK;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* const a_smem = smem;                                      // [slots][BM][kRowBytes]
+  uint8_t* const b_smem = smem + ring_slots(p.k_pad) * BM * kRowBytes;  // [slots][BN][kRowBytes]
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wm0 = (warp / WN) * TM, wn0 = (warp % WN) * TN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  // The A loader's rows: kVec, thread t fills 16-byte column a_col of rows
+  // t/4 + i*A_ROWS (4 threads read a pixel's 64 contiguous bytes); kByte,
+  // thread t fills row t; kStem finds its own (load_stage).
+  const int a_col = t & 3;
+  const int8_t* a_src[A_ITERS];  // the row's pixel in x
+  int a_oy[A_ITERS], a_ox[A_ITERS];
+  uint32_t a_zp[A_ITERS];        // the row's image's zero-point code, 4 lanes
+#pragma unroll
+  for (int i = 0; i < A_ITERS && MODE != kStem; ++i) {
+    int img = 0, oy = 0, ox = 0;
+    const bool valid = row_pixel(p, m0 + (VEC ? t / 4 : t) + i * A_ROWS, img, oy, ox);
+    const int zp = p.x_zp_img ? p.x_zp_img[img] : p.x_zp;
+    a_zp[i] = (uint32_t)(uint8_t)(int8_t)zp * 0x01010101u;
+    a_src[i] = p.x + ((size_t)(img * p.h + oy) * p.w_in + ox) * p.ci;
+    a_oy[i] = valid ? oy : kFar;
+    a_ox[i] = ox;
+  }
+
+  // Stage the K slab [k0, k0 + 64) (or the last 32) into ring slot `slot`.
+  auto load_stage = [&](int slot, int k0) {
+    uint8_t* as = a_smem + slot * BM * kRowBytes;
+    uint8_t* bs = b_smem + slot * BN * kRowBytes;
+    const int kc = min(kBK, p.k_pad - k0);
+    for (int idx = t; idx < BN * 4; idx += kThreads) {
+      const int nr = idx >> 2, c = idx & 3;
+      if (c * 16 >= kc) continue;
+      const int n = n0 + nr;
+      const bool ok = n < p.co_pad;
+      yq::cp_async16(yq::smem_addr(bs + nr * kRowBytes + c * 16),
+                     ok ? p.w + (size_t)n * p.k_pad + k0 + c * 16 : p.w, ok ? 16 : 0);
+    }
+    if constexpr (MODE == kStem) {  // k0 == 0 and K = 27: one slab, one k32 step
+      // thread t: pooled window t of the block, i.e. rows 8q + (t % 8) of
+      // 32-row group t / 8; patch rows 2py-1 .. 2py+2, columns 2px-1 .. 2px+2
+      const int win = (m0 >> 2) + t;
+      const int pw = p.w_out >> 1, phw = (p.h_out >> 1) * pw;
+      const bool valid = win < p.outs;
+      const int img = valid ? win / phw : 0, rem = win - img * phw;
+      const int py = rem / pw, px = rem - py * pw;
+      const uint32_t zp = (uint8_t)(p.x_zp_img ? p.x_zp_img[img] : p.x_zp);
+      uint32_t patch[4][12];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int iy = 2 * py - 1 + r;
+        const bool row_in = valid && (unsigned)iy < (unsigned)p.h;
+        const int8_t* rp = p.x + ((size_t)(img * p.h + iy) * p.w_in + 2 * px - 1) * 3;
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {  // every load issued, so all 48 are in flight together
+          const bool take = row_in && (unsigned)(2 * px - 1 + j / 3) < (unsigned)p.w_in;
+          const uint32_t code = (uint8_t)__ldg(take ? rp + j : p.x);
+          patch[r][j] = take ? code : zp;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // pixel (dy, dx) = (q / 2, q % 2); K index j = tap * 3 + c
+        uint32_t v[8];
+#pragma unroll
+        for (int wd = 0; wd < 8; ++wd) {
+          v[wd] = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int j = 4 * wd + b;
+            if (j < 27) v[wd] |= patch[q / 2 + j / 9][(q % 2 + j / 3 % 3) * 3 + j % 3] << (8 * b);
+          }
+        }
+        uint8_t* dst = as + ((t >> 3) * 32 + 8 * q + (t & 7)) * kRowBytes;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<uint4*>(dst + 16) = make_uint4(v[4], v[5], v[6], v[7]);
+      }
+      return;
+    }
+    if constexpr (MODE == kByte) {  // 32 K-bytes at a time: k walks (tap, channel) across taps
+#pragma unroll
+      for (int half = 0; half < kBK / 32; ++half) {
+        if (half * 32 >= kc) break;
+        const int kb = k0 + half * 32;
+        int tap = kb / p.ci, c = kb - tap * p.ci;
+        int dy = tap / p.k, dx = tap - dy * p.k;
+        uint32_t v[8];
+#pragma unroll
+        for (int b = 0; b < 32; ++b) {
+          // every load is issued (from x itself where the code is not read),
+          // so all 32 are in flight together; the select comes after
+          const int iy = a_oy[0] + dy - p.pad, ix = a_ox[0] + dx - p.pad;
+          const bool real = kb + b < p.k_real;  // past it: K padding, code 0
+          const bool take = real && (unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_in;
+          const int off = ((dy - p.pad) * p.w_in + dx - p.pad) * p.ci + c;
+          const uint32_t code = (uint8_t)__ldg(take ? a_src[0] + off : p.x);
+          const uint32_t byte = take ? code : real ? (a_zp[0] & 0xffu) : 0u;
+          v[b / 4] = (b % 4 ? v[b / 4] : 0u) | byte << (8 * (b % 4));
+          c = c + 1 == p.ci ? 0 : c + 1;
+          dx = c ? dx : dx + 1 == p.k ? 0 : dx + 1;
+          dy = c || dx ? dy : dy + 1;
+        }
+        uint8_t* dst = as + t * kRowBytes + half * 32;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<uint4*>(dst + 16) = make_uint4(v[4], v[5], v[6], v[7]);
+      }
+      return;
+    }
+    if (a_col * 16 >= kc) return;
+    const int kk = k0 + a_col * 16;
+    uint8_t* const arow = as + (t / 4) * kRowBytes + a_col * 16;
+    if (kk >= p.k_real) {  // K padding: code 0 (B is 0 there too)
+#pragma unroll
+      for (int i = 0; i < A_ITERS; ++i) {
+        *reinterpret_cast<uint4*>(arow + i * A_ROWS * kRowBytes) = make_uint4(0, 0, 0, 0);
+      }
+      return;
+    }
+    // one tap, 16 channels: a 16-byte copy per row
+    const int tap = kk / p.ci, c = kk - tap * p.ci;
+    const int dy = tap / p.k, dx = tap - dy * p.k;
+    const int off = ((dy - p.pad) * p.w_in + dx - p.pad) * p.ci + c;
+#pragma unroll
+    for (int i = 0; i < A_ITERS; ++i) {
+      uint8_t* dst = arow + i * A_ROWS * kRowBytes;
+      const int iy = a_oy[i] + dy - p.pad, ix = a_ox[i] + dx - p.pad;
+      if ((unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_in) {
+        if (p.ci <= 32) {
+          yq::cp_async16_l1(yq::smem_addr(dst), a_src[i] + off);
+        } else {
+          yq::cp_async16(yq::smem_addr(dst), a_src[i] + off, 16);
+        }
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(a_zp[i], a_zp[i], a_zp[i], a_zp[i]);
+      }
+    }
+  };
+
+  int acc[MI][NI][4];
+  int ps[MI][2];  // patchsum of rows g, g+8 of each m16 tile (ASYM)
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    ps[mi][0] = ps[mi][1] = 0;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage(s, s * kBK);
+    yq::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    yq::cp_async_wait<kStages - 2>();
+    __syncthreads();  // slab kt is in; every warp is done with slab kt - 1
+    const int nxt = kt + kStages - 1;  // past nk whenever the ring has fewer slots
+    if (nxt < nk) load_stage(nxt % kStages, nxt * kBK);
+    yq::cp_async_commit();
+
+    const uint8_t* as = a_smem + (kt % kStages) * BM * kRowBytes;
+    const uint8_t* bs = b_smem + (kt % kStages) * BN * kRowBytes;
+    const int ksteps = p.k_pad - kt * kBK >= kBK ? 2 : 1;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      if (ks < ksteps) {
+        uint32_t af[MI][4], bf[NI][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          yq::ldmatrix_x4(af[mi], yq::smem_addr(as + (wm0 + mi * 16 + (lane & 15)) * kRowBytes +
+                                                ks * 32 + (lane >> 4) * 16));
+        }
+#pragma unroll
+        for (int nj = 0; nj < NI / 2; ++nj) {
+          uint32_t r[4];
+          yq::ldmatrix_x4(r, yq::smem_addr(bs + (wn0 + nj * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                                    kRowBytes +
+                                           ks * 32 + ((lane >> 3) & 1) * 16));
+          bf[2 * nj][0] = r[0];
+          bf[2 * nj][1] = r[1];
+          bf[2 * nj + 1][0] = r[2];
+          bf[2 * nj + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) yq::mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+        }
+        if (ASYM) {
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            ps[mi][0] = __dp4a((int)af[mi][0], 0x01010101, __dp4a((int)af[mi][2], 0x01010101, ps[mi][0]));
+            ps[mi][1] = __dp4a((int)af[mi][1], 0x01010101, __dp4a((int)af[mi][3], 0x01010101, ps[mi][1]));
+          }
+        }
+      }
+    }
+  }
+  yq::cp_async_wait<0>();
+
+  if (ASYM) {  // each of a quad's 4 threads summed a quarter of its rows' K bytes
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        ps[mi][hh] += __shfl_xor_sync(0xffffffffu, ps[mi][hh], 1);
+        ps[mi][hh] += __shfl_xor_sync(0xffffffffu, ps[mi][hh], 2);
+      }
+    }
+  }
+
+  const int g = lane >> 2, tq = lane & 3;
+  const yq::Clamp cl = yq::clamp_of(p.e);
+  // acc - w_zp[o] * patchsum in wrapping int32, as XLA's
+  auto correct = [&](int a, int o, int patchsum) {
+    return ASYM ? (int)((unsigned)a - (unsigned)p.w_zp[o] * (unsigned)patchsum) : a;
+  };
+  if (p.pool) {
+    const int phw = (p.h_out >> 1) * (p.w_out >> 1);
+#pragma unroll
+    for (int jg = 0; jg < MI / 2; ++jg) {
+      const int win = ((m0 + wm0) >> 2) + jg * 8 + g;
+      if (win >= p.outs) continue;
+      const size_t bm = (size_t)(win / phw) * p.e.bm_stride;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int o = n0 + wn0 + ni * 8 + 2 * tq + j;
+          if (o >= p.co) continue;
+          const int q0 = correct(acc[2 * jg][ni][j], o, ps[2 * jg][0]);
+          const int q1 = correct(acc[2 * jg][ni][2 + j], o, ps[2 * jg][1]);
+          const int q2 = correct(acc[2 * jg + 1][ni][j], o, ps[2 * jg + 1][0]);
+          const int q3 = correct(acc[2 * jg + 1][ni][2 + j], o, ps[2 * jg + 1][1]);
+          const int a = max(max(q0, q1), max(q2, q3));
+          p.out[(size_t)win * p.co + o] = (uint8_t)yq::requant(a, p.e.bias[bm + o], p.e.m[bm + o], p.e, cl);
+        }
+      }
+    }
+  } else {
+    const int hw = p.h_out * p.w_out;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m0 + wm0 + mi * 16 + g + 8 * hh;
+        if (r >= p.outs) continue;
+        const size_t bm = (size_t)(r / hw) * p.e.bm_stride;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int o = n0 + wn0 + ni * 8 + 2 * tq + j;
+            if (o >= p.co) continue;
+            const int a = correct(acc[mi][ni][2 * hh + j], o, ps[mi][hh]);
+            p.out[(size_t)r * p.co + o] = (uint8_t)yq::requant(a, p.e.bias[bm + o], p.e.m[bm + o], p.e, cl);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The current device and its SM count, read once per device.
+cudaError_t device_sms(int& dev, int& sms) {
+  static int count[kMaxDevices] = {0};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  sms = count[dev];
+  return cudaSuccess;
+}
+
+template <int BM, int BN, int WM, int WN, bool ASYM, int MODE = kVec>
+cudaError_t launch_mma(const Params& p, int dev, cudaStream_t stream) {
+  constexpr int kMaxSmem = kStages * (BM + BN) * kRowBytes;
+  const auto kernel = qconv_mma_kernel<BM, BN, WM, WN, ASYM, MODE>;
+  // the attribute holds for the current device only; a benign race: every
+  // caller sets the same value
+  static bool smem_set[kMaxDevices] = {false};
+  if (!smem_set[dev]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  const dim3 grid((p.rows + BM - 1) / BM, (p.co + BN - 1) / BN);
+  kernel<<<grid, WM * WN * 32, ring_slots(p.k_pad) * (BM + BN) * kRowBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The block tile by N = Co, and by M where the large tile would leave SMs
+// without a block (the 13x13 layers: M = 2,704 at batch 16).  The pooled
+// 3-channel stem and other Ci % 16 != 0 take their own loaders.
+template <bool ASYM>
+cudaError_t launch_tile(const Params& p, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  const cudaError_t err = device_sms(dev, sms);
+  if (err != cudaSuccess) return err;
+  const auto blocks = [&](int bm, int bn) {
+    return (long long)((p.rows + bm - 1) / bm) * ((p.co + bn - 1) / bn);
+  };
+  if (p.ci == 3 && p.k == 3 && p.pad == 1 && p.pool && p.co <= 16) {
+    return launch_mma<512, 16, 4, 1, ASYM, kStem>(p, dev, s);
+  }
+  if (p.ci % 16) {
+    return p.co <= 16 ? launch_mma<128, 16, 4, 1, ASYM, kByte>(p, dev, s)
+                      : launch_mma<128, 32, 4, 1, ASYM, kByte>(p, dev, s);
+  }
+  if (p.co <= 16) return launch_mma<128, 16, 4, 1, ASYM>(p, dev, s);
+  if (p.co <= 32) {
+    return blocks(128, 32) >= sms ? launch_mma<128, 32, 4, 1, ASYM>(p, dev, s)
+                                  : launch_mma<64, 32, 2, 1, ASYM>(p, dev, s);
+  }
+  if (p.co <= 64) {
+    return blocks(128, 64) >= sms ? launch_mma<128, 64, 4, 2, ASYM>(p, dev, s)
+                                  : launch_mma<64, 64, 2, 2, ASYM>(p, dev, s);
+  }
+  return blocks(128, 128) >= sms ? launch_mma<128, 128, 2, 4, ASYM>(p, dev, s)
+                                 : launch_mma<64, 64, 2, 2, ASYM>(p, dev, s);
+}
+
+// ---- the int16 carrier: a scalar kernel ----
+
+constexpr int kI16Threads = 256;
+constexpr int kChunkWords = 16;  // shared-memory words (int16 pairs) per position and stage
 
 // CG threads share one 2x2 window, each with 4 channels: TC = 4*CG output
 // channels per block, 256/CG windows arranged WY x WX.
 template <int CG>
-struct Tile {
+struct I16Tile {
   static constexpr int TC = 4 * CG;
-  static constexpr int WINDOWS = kThreads / CG;
+  static constexpr int WINDOWS = kI16Threads / CG;
   static constexpr int WX = CG == 16 ? 4 : 8;
   static constexpr int WY = WINDOWS / WX;
   static constexpr int TH = 2 * WY;
@@ -68,21 +490,13 @@ struct Tile {
   static constexpr int W_WORDS = TC * (kMaxK * kMaxK * kChunkWords + 1);
 };
 
-struct Params {
-  const int8_t* x;          // (N, H, W, Ci) shifted int8 codes
-  const int8_t* w;          // (Co, K, K, Ci4 * 4) packed int8 weights
-  const int32_t* w_zp;      // (Co,) shifted weight zero points (ASYM only)
-  const int32_t* x_zp_img;  // (N,) per-image input zero point, or null
-  Epilogue e;
-  uint8_t* out;             // (N, Ho, Wo, Co), or pooled (N, Ho/2, Wo/2, Co)
-  int h, w_in, ci, ci4, co, k, pad, h_out, w_out;
-  int x_zp, pool, tiles_x;
-};
-
-template <int CG, bool ASYM, bool I16>
-__global__ void __launch_bounds__(kThreads) qconv_kernel(const Params p) {
-  using T = Tile<CG>;
-  using Wd = Word<I16>;
+// Each thread owns one 2x2 output window and 4 output channels; input
+// channels are walked in chunks of 32 (16 words), each chunk staging the
+// zero-point-padded input window and the chunk's weights in shared memory.
+template <int CG, bool ASYM>
+__global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) {
+  using T = I16Tile<CG>;
+  using Wd = yq::Word<true>;
   constexpr int L = Wd::kLanes;  // channels per shared word
   __shared__ int xs[T::IN_WORDS];
   __shared__ int ws[T::W_WORDS];
@@ -98,13 +512,9 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Params p) {
   const int K = p.k, KK = K * K;
   const int IW = T::TW + K - 1;
   const int npos = (T::TH + K - 1) * IW;
-  const int x_zp = p.x_zp_img ? p.x_zp_img[img] : p.x_zp;
-  const int8_t zp_code = (int8_t)x_zp;
-  const uint32_t zp_word = (uint32_t)(uint8_t)zp_code * 0x01010101u;
-  const bool word_aligned = !I16 && (p.ci & 3) == 0;
+  const int8_t zp_code = (int8_t)(p.x_zp_img ? p.x_zp_img[img] : p.x_zp);
   const int nwords = (p.ci + L - 1) / L;  // shared words per pixel
   const size_t img_base = (size_t)img * p.h * p.w_in;
-  const size_t w_row = (size_t)p.ci4 * 4;  // packed weight bytes per (o, tap)
 
   int acc[4][4];  // [channel j][pixel (dy*2+dx) of the 2x2 window]
   int ps[4];      // patchsum per pixel (ASYM)
@@ -117,41 +527,35 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Params p) {
 
   for (int c0 = 0; c0 < nwords; c0 += kChunkWords) {
     const int cw = min(kChunkWords, nwords - c0);
-    const int ips = cw | 1;            // input word stride per position
-    const int wrs = (KK * cw) | 1;     // weight word stride per channel
-    __syncthreads();  // the previous chunk's reads are done
+    const int ips = cw | 1;         // input word stride per position
+    const int wrs = (KK * cw) | 1;  // weight word stride per channel
+    __syncthreads();                // the previous chunk's reads are done
 
-    for (int idx = t; idx < npos * cw; idx += kThreads) {
+    for (int idx = t; idx < npos * cw; idx += kI16Threads) {
       const int pos = idx / cw, q = idx - pos * cw;
       const int py = pos / IW, px = pos - py * IW;
       const int iy = y0 - p.pad + py, ix = x0 - p.pad + px;
       const bool inside = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w_in;
       const size_t pix = img_base + (size_t)iy * p.w_in + ix;
-      uint32_t v;
-      if (word_aligned) {
-        v = inside ? reinterpret_cast<const uint32_t*>(p.x)[pix * p.ci4 + c0 + q] : zp_word;
-      } else {
-        v = 0;  // channels past Ci stay 0; their packed weights are 0 too
-        const int c = L * (c0 + q);
+      uint32_t v = 0;  // channels past Ci stay 0, as do their weights
+      const int c = L * (c0 + q);
 #pragma unroll
-        for (int b = 0; b < L; ++b) {
-          if (c + b < p.ci) v |= Wd::lane(inside ? p.x[pix * p.ci + c + b] : zp_code, b);
-        }
+      for (int b = 0; b < L; ++b) {
+        if (c + b < p.ci) v |= Wd::lane(inside ? p.x[pix * p.ci + c + b] : zp_code, b);
       }
       xs[pos * ips + q] = (int)v;
     }
-    for (int idx = t; idx < T::TC * KK * cw; idx += kThreads) {
+    for (int idx = t; idx < T::TC * KK * cw; idx += kI16Threads) {
       const int ol = idx / (KK * cw), r = idx - ol * (KK * cw);
       const int tap = r / cw, q = r - tap * cw;
       const int o = o0 + ol;
       uint32_t v = 0;
       if (o < p.co) {
-        const int8_t* wp = p.w + ((size_t)o * KK + tap) * w_row;
-        if (I16) {
+        const int8_t* wp = p.w + (size_t)o * p.k_pad + tap * p.ci;  // the packed B row
+        const int c = L * (c0 + q);
 #pragma unroll
-          for (int b = 0; b < L; ++b) v |= Wd::lane(wp[L * (c0 + q) + b], b);
-        } else {
-          v = reinterpret_cast<const uint32_t*>(wp)[c0 + q];
+        for (int b = 0; b < L; ++b) {
+          if (c + b < p.ci) v |= Wd::lane(wp[c + b], b);
         }
       }
       ws[ol * wrs + r] = (int)v;
@@ -191,7 +595,6 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Params p) {
     const int o = o0 + cg + CG * j;
     if (o >= p.co) continue;
     if (ASYM) {
-      // acc - w_zp[o] * patchsum in wrapping int32, as XLA's
       const unsigned zw = (unsigned)p.w_zp[o];
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[j][q] = (int)((unsigned)acc[j][q] - zw * (unsigned)ps[q]);
@@ -219,32 +622,30 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Params p) {
   }
 }
 
-template <int CG, bool ASYM, bool I16>
-void launch(Params p, int n, cudaStream_t stream) {
-  using T = Tile<CG>;
+template <int CG, bool ASYM>
+cudaError_t launch_i16(Params p, int n, cudaStream_t stream) {
+  using T = I16Tile<CG>;
   p.tiles_x = (p.w_out + T::TW - 1) / T::TW;
   const int tiles_y = (p.h_out + T::TH - 1) / T::TH;
   const dim3 grid(p.tiles_x * tiles_y, (p.co + T::TC - 1) / T::TC, n);
-  qconv_kernel<CG, ASYM, I16><<<grid, kThreads, 0, stream>>>(p);
+  qconv_i16_kernel<CG, ASYM><<<grid, kI16Threads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <bool ASYM, bool I16>
-void launch_tile(const Params& p, int n, cudaStream_t s) {
-  if (p.co <= 16) {
-    launch<4, ASYM, I16>(p, n, s);
-  } else if (p.co <= 32) {
-    launch<8, ASYM, I16>(p, n, s);
-  } else {
-    launch<16, ASYM, I16>(p, n, s);
-  }
+template <bool ASYM>
+cudaError_t launch_i16_tile(const Params& p, int n, cudaStream_t s) {
+  if (p.co <= 16) return launch_i16<4, ASYM>(p, n, s);
+  if (p.co <= 32) return launch_i16<8, ASYM>(p, n, s);
+  return launch_i16<16, ASYM>(p, n, s);
 }
 
 }  // namespace
 
 // Plain C entry for ctypes.  Shapes are validated by the Python wrapper;
-// returns the launch's cudaError_t (0 on success).  w_zp null means
-// symmetric weights, x_zp_img null the static x_zp; bm_per_image selects
-// (N, Co) bias/m; carrier16 the int16 carrier.
+// returns the launch's cudaError_t (0 on success).  w is pack_weights'
+// (Co_pad, K_pad) layout; w_zp null means symmetric weights, x_zp_img null
+// the static x_zp; bm_per_image selects (N, Co) bias/m; carrier16 the int16
+// carrier.
 extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const void* x_zp_img,
                         const void* bias, const void* m, void* out, int n, int h, int w_in,
                         int ci, int co, int k, int pad, int x_zp, int out_zp, int act,
@@ -269,26 +670,34 @@ extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const vo
   p.h = h;
   p.w_in = w_in;
   p.ci = ci;
-  p.ci4 = (ci + 3) / 4;
   p.co = co;
   p.k = k;
   p.pad = pad;
   p.h_out = h + 2 * pad - k + 1;
   p.w_out = w_in + 2 * pad - k + 1;
+  p.k_real = k * k * ci;
+  p.k_pad = (p.k_real + 31) / 32 * 32;
+  p.co_pad = (co + 15) / 16 * 16;
   p.x_zp = x_zp;
   p.pool = fuse_pool;
   p.tiles_x = 1;
   if (p.h_out < 1 || p.w_out < 1) return (int)cudaErrorInvalidValue;
+  if (fuse_pool && (p.h_out % 2 || p.w_out % 2)) return (int)cudaErrorInvalidValue;
+  const long long outs = fuse_pool ? (long long)n * (p.h_out / 2) * (p.w_out / 2)
+                                   : (long long)n * p.h_out * p.w_out;
+  const long long rows = fuse_pool ? 32 * ((outs + 7) / 8) : outs;
+  if (rows > INT_MAX - 256 || (long long)n * h * w_in * ci > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  p.outs = (int)outs;
+  p.rows = (int)rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool asym = w_zp != nullptr;
-  if (asym && carrier16) {
-    launch_tile<true, true>(p, n, s);
-  } else if (asym) {
-    launch_tile<true, false>(p, n, s);
-  } else if (carrier16) {
-    launch_tile<false, true>(p, n, s);
+  cudaError_t err;
+  if (carrier16) {
+    err = asym ? launch_i16_tile<true>(p, n, s) : launch_i16_tile<false>(p, n, s);
   } else {
-    launch_tile<false, false>(p, n, s);
+    err = asym ? launch_tile<true>(p, s) : launch_tile<false>(p, s);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -2,7 +2,9 @@
 
 Replaces ``yolo_quantization_tpu/ops/pallas_qconv.py::pallas_quantized_conv2d``:
 a fused stride-1 conv, the requant epilogue, and optionally the following
-darknet 2x2/s2 maxpool.  Unlike the Pallas kernel it takes any input channel
+darknet 2x2/s2 maxpool.  The int8 carrier is an implicit GEMM on the int8
+tensor cores (``mma.sync`` s8) over the weights packed by
+``pack_weights``.  Unlike the Pallas kernel it takes any input channel
 count, including the 3-channel stem, and the options the reference engine
 ran on XLA: asymmetric weights, a per-image input zero point and (N, Co)
 bias/m (``dynamic_input``), ``exact_leaky`` and the int16 carrier.
@@ -54,13 +56,19 @@ def build() -> None:
 
 
 def pack_weights(w_i8: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 weights -> the kernel's (Co, K, K, Cin_pad4) layout, input
-    channels zero-padded to a multiple of 4 (one int32 word per 4)."""
-    w = w_i8.permute(3, 0, 1, 2)
-    ci = w.shape[-1]
-    if ci % 4:
-        w = F.pad(w, (0, 4 - ci % 4))
-    return w.contiguous()
+    """HWIO int8 weights -> the kernel's B operand, (Co_pad, K_pad) int8:
+    row o holds w[ky, kx, ci, o] at column (ky*K + kx)*Cin + ci (the HWIO
+    flatten order), K zero-padded to a multiple of 32 (one tensor-core
+    k-step) and Co to a multiple of 16."""
+    k, k2, ci, co = w_i8.shape
+    depth = k * k2 * ci
+    w = w_i8.reshape(depth, co).t()
+    return F.pad(w, (0, -depth % 32, 0, -co % 16)).contiguous()
+
+
+def packed_shape(k: int, ci: int, co: int) -> tuple[int, int]:
+    """(Co_pad, K_pad) of ``pack_weights`` for a KxK conv from Ci to Co."""
+    return -(-co // 16) * 16, -(-(k * k * ci) // 32) * 32
 
 
 def check_tensor(name, t: torch.Tensor, dtype, shape, device):
@@ -177,10 +185,13 @@ def quantized_conv2d_cuda(
     if w_packed is None:
         w_packed = pack_weights(w_i8)
     check_tensor("x", x, torch.int8, (n, h, w, ci), dev)
-    check_tensor("w_packed", w_packed, torch.int8, (co, k, k, -(-ci // 4) * 4), dev)
+    check_tensor("w_packed", w_packed, torch.int8, packed_shape(k, ci, co), dev)
     per_image = check_bias_m(bias_i32, m, n, co, dev)
     if w_zp is not None:
         check_tensor("w_zp", w_zp, torch.int32, (co,), dev)
+    for name, t in (("x", x), ("w_packed", w_packed)):
+        if t.data_ptr() % 16:  # the kernel reads both with 16-byte copies
+            raise ValueError(f"{name}: data must start on a 16-byte boundary")
     zp_ptr, zp_static = zero_point_args(x_zp, n, dev)
     oh, ow = (h_out // 2, w_out // 2) if fuse_pool else (h_out, w_out)
     out = torch.empty((n, oh, ow, co), dtype=torch.int8 if out_i8 else torch.uint8, device=dev)

@@ -1,0 +1,339 @@
+"""Timings of the hand-written kernels and the engines on one GPU.
+
+    python -m yolo_quantization_tpu_torch.tools.kernel_timings
+
+A kernel's time is its device time: 20 calls captured in one CUDA graph,
+replayed between CUDA events, so the wrapper's host cost (Python checks,
+ctypes) is left out; the eager back-to-back time, which includes that host
+cost, is printed beside it.  Per-layer K1 vs plain (and ``torch._int_mm``,
+graph-timed, on the 1x1 layers its shape rules allow), K2 vs K1's fused stem
+per layer, device forwards of the three engines at batch 1, 16 and 64
+(eager, CUDA events), the probe cases vs ``torch._int_mm``.  Prints, checks
+nothing.
+
+``chip_smoke.py`` runs ``time_all`` as its last phase.  Run alone, the
+module builds the kernels and the engines itself; copied into an older
+checkout whose wrappers take the same arguments, it times that checkout's
+kernels with the same code, which is how two versions are compared on one
+card.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+# flagship conv layers (yolov3-tiny at 416) in layer order
+FLAGSHIP_CONVS = (0, 2, 4, 6, 8, 10, 12, 13, 14, 15, 18, 21, 22)
+S2D_LAYERS = (0, 2, 4)
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): int8 tensor cores, HBM3
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_identity() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time on the card: the larger of bytes over HBM rate and int8
+    operations over the tensor-core peak."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def int_mm_ok(m: int, k: int, n: int) -> bool:
+    """torch._int_mm's CUDA shape rules: m > 16, k and n multiples of 8."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def random_layer(rng, n, h, w, ci, co, k):
+    """Seeded codes, weights, bias and multipliers with outputs spread over
+    the code range (acc std ~ sqrt(K*K*Ci) * 73^2)."""
+    x = rng.integers(-128, 128, (n, h, w, ci), dtype=np.int8)
+    wt = rng.integers(-127, 128, (k, k, ci, co)).astype(np.int8)
+    bias = rng.integers(-(2**14), 2**14, (co,)).astype(np.int32)
+    m = (rng.uniform(0.5, 2.0, (co,)) * 40.0 / (np.sqrt(k * k * ci) * 5300.0)).astype(np.float32)
+    return x, wt, bias, m
+
+
+def flagship_layers():
+    """(layer, h, w, ci, co, k, pad, act, in the fusion plan) of the 13 convs."""
+    from yolo_quantization_tpu_torch.infer.engine import fusion_plan
+    from yolo_quantization_tpu_torch.models.presets import flagship_network, flagship_program
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LINEAR, ACT_RELU6
+
+    net = flagship_network(5, 416)
+    shapes = net.shapes()
+    plan = fusion_plan(flagship_program(5, 416))
+    out = []
+    for i in FLAGSHIP_CONVS:
+        s = net.specs[i]
+        h, w, ci = shapes[i - 1] if i > 0 else (416, 416, 3)
+        act = ACT_RELU6 if s.activation == "relu6" else ACT_LINEAR
+        out.append((i, h, w, ci, s.filters, s.size, s.pad, act, i in plan))
+    return out
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Eager back-to-back calls between CUDA events: the device time, or the
+    host's launch cost per call where that is longer."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    and replayed between CUDA events, so no host work is timed.  The
+    wrappers launch on the current stream, the capture stream here."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up off the capture stream, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+class Totals:
+    """Summed kernel (graph), eager, plain, bound and library times of one
+    kernel entry."""
+
+    def __init__(self):
+        self.ms = self.eager_ms = self.plain_ms = self.bound_ms = self.bytes_bound_ms = 0.0
+        self.library_ms: float | None = 0.0
+
+    def add(self, ms, eager_ms, plain_ms, bound, library_ms):
+        self.ms += ms
+        self.eager_ms += eager_ms
+        self.plain_ms += plain_ms
+        self.bound_ms += bound[0]
+        if bound[1] == "bytes":
+            self.bytes_bound_ms += bound[0]
+        # a sum over the cases is a yardstick only when every case has one
+        self.library_ms = None if library_ms is None or self.library_ms is None else self.library_ms + library_ms
+
+    def entry(self, name, source, replaces, launches, err):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": self.ms, "plain_ms": self.plain_ms,
+            "bound_ms": self.bound_ms,
+            "bound_by": "bytes" if self.bytes_bound_ms * 2 >= self.bound_ms else "operations",
+            "library_ms": self.library_ms,
+        }
+
+
+def time_k1_layers(cuda_qconv, qconv, rng, card):
+    tot = Totals()
+    log(f"  per-layer conv at batch 16 [{card}]: kernel = graph-timed device time; eager = "
+        "back-to-back calls, the wrapper's host cost included; plain = float64 F.conv2d + "
+        "requant on the same card (eager); _int_mm = torch._int_mm int8 GEMM, graph-timed, on "
+        "the 1x1 layers where its shape rules allow; inputs warm in L2:")
+    for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
+        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, k)
+        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+        wp = cuda_qconv.pack_weights(wt_t)
+
+        def kernel():
+            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=act,
+                                             out_zp_static=0, fuse_pool=fused, out_i8=True,
+                                             w_packed=wp)
+
+        def plain():
+            if fused:
+                qconv.quantized_conv2d_pool(xt, wt_t, b_t, m_t, 3, 0, pad=pad, act=act, out_i8=True)
+            else:
+                qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, pad=pad, act=act,
+                                       symmetric=True, out_i8=True)
+
+        # kernel and its eager form in turns: graph, eager, eager, graph
+        g1, e1, e2, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), cuda_time_ms(kernel, 20), \
+            graph_time_ms(kernel)
+        k_ms, e_ms = (g1 + g2) / 2, (e1 + e2) / 2
+        p_ms = cuda_time_ms(plain, 5, warmup=1)
+        lib_ms = lib_eager = None
+        if k == 1 and int_mm_ok(16 * h * w, ci, co):
+            a2, b2 = xt.reshape(-1, ci), wt_t.reshape(ci, co)
+            lib_ms = graph_time_ms(lambda: torch._int_mm(a2, b2))
+            lib_eager = cuda_time_ms(lambda: torch._int_mm(a2, b2), 20)
+        oh, ow = (h // 2, w // 2) if fused else (h, w)
+        mac = 16 * h * w * co * k * k * ci
+        bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * oh * ow * co, 2 * mac)
+        tot.add(k_ms, e_ms, p_ms, bound, lib_ms)
+        lib = f"{lib_ms:.4f} ms (eager {lib_eager:.4f})" if lib_ms is not None else "none"
+        log(f"    layer {i:2d} {h}x{w}x{ci}->{co} k{k}{' +pool' if fused else ''}: kernel "
+            f"{k_ms:.4f} ms ({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound), "
+            f"eager {e_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+            f"_int_mm {lib} [{card}]")
+    log(f"  all 13 convs at batch 16: kernel {tot.ms:.4f} ms (graph), eager {tot.eager_ms:.4f} ms, "
+        f"plain {tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
+    return tot
+
+
+def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
+    from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
+
+    tot = Totals()
+    log(f"  s2d stem (K2) vs K1's fused stem at batch 16, graph-timed [{card}]:")
+    for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
+        if i not in S2D_LAYERS:
+            continue
+        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, 3)
+        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+        ws_t = torch.from_numpy(_s2d_weights(wt)).cuda()
+        wp1, wp2 = cuda_qconv.pack_weights(wt_t), cuda_s2d.pack_weights(ws_t)
+
+        def k2():
+            cuda_s2d.s2d_conv_phase_max_cuda(xt, ws_t, b_t, m_t, 3, act=act, w_packed=wp2)
+
+        def k1():
+            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=1, act=act,
+                                             fuse_pool=True, out_i8=True, w_packed=wp1)
+
+        def plain():
+            qconv.s2d_conv_phase_max(qconv.space_to_depth(xt), ws_t, b_t, m_t, 3, 0, act=act)
+
+        # K1 and K2 in turns: k1, k2, k2, k1
+        t1a, t2a, t2b, t1b = (graph_time_ms(f) for f in (k1, k2, k2, k1))
+        k1_ms, k2_ms = (t1a + t1b) / 2, (t2a + t2b) / 2
+        e_ms = cuda_time_ms(k2, 20)
+        p_ms = cuda_time_ms(plain, 5, warmup=1)
+        mac = 16 * (h // 2) * (w // 2) * 4 * co * 9 * 4 * ci
+        bound = bound_ms(16 * h * w * ci + 9 * 16 * ci * co + 8 * co + 16 * (h // 2) * (w // 2) * co,
+                         2 * mac)
+        tot.add(k2_ms, e_ms, p_ms, bound, None)
+        log(f"    layer {i} {h}x{w}x{ci}->{co} +pool: K2 {k2_ms:.4f} ms ({mac / 1e9 / k2_ms:.2f} TMAC/s "
+            f"incl. zeros), K1 fused {k1_ms:.4f} ms, K2/K1 {k2_ms / k1_ms:.2f}x, K2 eager "
+            f"{e_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    log(f"  s2d stem layers 0/2/4 at batch 16: K2 {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms "
+        f"[{card}]")
+    return tot
+
+
+def time_engines(engines, rng, card):
+    """Device forwards of the flagship, s2d and parity engines (CUDA
+    events); ``engines`` maps those names to CUDA engines."""
+    from yolo_quantization_tpu_torch.infer.engine import build_forward
+
+    for b in (1, 16, 64):
+        x = rng.uniform(0, 1, (b, 416, 416, 3)).astype(np.float32)
+        xd = torch.from_numpy(x).cuda()
+        for cname in ("flagship", "s2d", "parity"):
+            if b == 1 and cname != "flagship":
+                continue
+            eng = engines[cname]
+            forward = build_forward(eng.program, **eng.options)
+            torch.cuda.reset_peak_memory_stats()
+
+            def fwd():
+                with torch.inference_mode():
+                    forward(eng.arrays, xd)
+
+            dev_ms = cuda_time_ms(fwd, 10)
+            line = (f"  {cname:8s} batch {b:2d}: device forward {dev_ms:.3f} ms "
+                    f"({b / dev_ms * 1e3:.1f} images/s)")
+            if cname == "flagship":
+                iters = 20 if b < 64 else 5
+                eng.predict(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    eng.predict(x)
+                wall = (time.perf_counter() - t0) / iters
+                line += (f"; predict {b / wall:.1f} images/s ({wall * 1e3:.3f} ms per call, "
+                         "host input included)")
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            log(f"{line}; peak memory {peak:.1f} MiB [{card}]")
+
+
+def time_probe(probe, results, card):
+    """The probe's cases, from ``orientation_probe.run_cases``."""
+    tots = {"a": Totals(), "b": Totals()}
+    for name, orientation, k, o, p, args, _ in results:
+        fn = probe.orientation_a if orientation == "a" else probe.orientation_b
+        ms = graph_time_ms(lambda: fn(*args))
+        e_ms = cuda_time_ms(lambda: fn(*args), 20)
+        p_ms = cuda_time_ms(lambda: probe.plain_matmul_i8(*args), 3, warmup=1)
+        a, b = args
+        lib_ms = None
+        if int_mm_ok(a.shape[0], a.shape[1], b.shape[1]):
+            lib_ms = graph_time_ms(lambda: torch._int_mm(a, b))
+        bound = bound_ms(p * k + k * o + p * o, 2 * p * k * o)
+        tots[orientation].add(ms, e_ms, p_ms, bound, lib_ms)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (m <= 16)"
+        log(f"  {name}: kernel {ms:.4f} ms (graph; {bound[0] / ms:.1%} of bound), eager "
+            f"{e_ms:.4f} ms, plain {p_ms:.4f} ms, _int_mm {lib} (graph), bound "
+            f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    return tots
+
+
+def time_all(engines, probe_results, card, rng):
+    """Every timing above; returns the Totals of K1, K2 and K3 ({"a", "b"})."""
+    from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, qconv
+    from yolo_quantization_tpu_torch.tools import orientation_probe as probe
+
+    k1 = time_k1_layers(cuda_qconv, qconv, rng, card)
+    k2 = time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card)
+    time_engines(engines, rng, card)
+    k3 = time_probe(probe, probe_results, card)
+    return k1, k2, k3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_timings: needs a CUDA GPU")
+    from yolo_quantization_tpu_torch.infer.engine import Engine
+    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d
+    from yolo_quantization_tpu_torch.tools import orientation_probe as probe
+    from yolo_quantization_tpu_torch.tools.profile_engine import configurations
+
+    t_start = time.perf_counter()
+    card = card_identity()
+    log(f"kernel timings: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    _build.build_all(("qconv", "s2d_qconv", "gemm_probe"))
+    cuda_qconv.build()
+    cuda_s2d.build()
+    probe.build()
+    engines = {name: Engine(program, device="cuda", **option)
+               for name, (program, option) in configurations().items()}
+    time_all(engines, list(probe.run_cases("cuda")), card, np.random.default_rng(0))
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,11 +7,12 @@ The counterpart of ``scripts/mxu_orientation_probe.py``.  The stem conv
   B. pixels along a row: (O, K) x (K, P)  weights-stationary
 
 and the s2d form is A or B with (P/4, 4K) x (4K, 4O).  The kernels
-(``csrc/gemm_probe.cu``) compute the products with int32 accumulation and
-narrow to int8 with the wrap of XLA's convert (int32 128 -> int8 -128), so
-the probe moves the bytes a real layer would.  The cases are the script's
-four, on seeded random int8 inputs (on all-ones inputs K = 128 gives 128,
-which wraps to -128; random codes exercise the wrap everywhere).
+(``csrc/gemm_probe.cu``; A on the int8 tensor cores, B on ``__dp4a``)
+compute the products with int32 accumulation and narrow to int8 with the
+wrap of XLA's convert (int32 128 -> int8 -128), so the probe moves the
+bytes a real layer would.  The cases are the script's four, on seeded
+random int8 inputs (on all-ones inputs K = 128 gives 128, which wraps to
+-128; random codes exercise the wrap everywhere).
 
     python -m yolo_quantization_tpu_torch.tools.orientation_probe
 
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import threading
 
 import numpy as np
@@ -71,17 +71,24 @@ def plain_matmul_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _check_shapes(p: int, k: int, o: int, orientation: str):
-    if k % 4 or not 4 <= k <= 256 or o % 16 or o < 16 or p < 1 or (orientation == "b" and p % 4):
-        raise ValueError(
-            f"probe kernel shapes: K % 4 == 0 (<= 256), O % 16 == 0, P % 4 == 0 for B; "
-            f"got P={p} K={k} O={o}")
+    if orientation == "a":
+        ok = k % 32 == 0 and 32 <= k <= 256 and o % 16 == 0 and 16 <= o <= 64 and p >= 1
+        rule = "A: K % 32 == 0 (<= 256), O % 16 == 0 (<= 64)"
+    else:
+        ok = k % 4 == 0 and 4 <= k <= 256 and o % 16 == 0 and o >= 16 and p >= 1 and p % 4 == 0
+        rule = "B: K % 4 == 0 (<= 256), O % 16 == 0, P % 4 == 0"
+    if not ok:
+        raise ValueError(f"probe kernel shapes: {rule}; got P={p} K={k} O={o}")
 
 
 def _launch(name: str, first: torch.Tensor, second: torch.Tensor, out: torch.Tensor,
             p: int, k: int, o: int) -> torch.Tensor:
+    align = 16 if name == "orientation_a" else 4  # A copies 16 bytes at a time, B reads words
     for label, t in (("first", first), ("second", second)):
         if t.dtype != torch.int8 or not t.is_contiguous() or t.device != out.device:
             raise ValueError(f"{name} {label} operand: expected contiguous int8 on {out.device}")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} {label} operand: data must start on a {align}-byte boundary")
     lib = _library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -141,33 +148,19 @@ def run_cases(device, scale: int = 1, seed: int = 0):
         yield name, orientation, k, o, p, args, fn(*args)
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> int:
+    from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity, cuda_time_ms
+
     if not torch.cuda.is_available():
         raise SystemExit("orientation_probe: needs a CUDA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_identity()
     rows = []
     for name, orientation, k, o, p, args, out in run_cases("cuda"):
         ref = plain_matmul_i8(*args)
         if not torch.equal(out, ref):
             raise AssertionError(f"{name}: kernel != plain version")
         fn = orientation_a if orientation == "a" else orientation_b
-        ms = cuda_time_ms(lambda: fn(*args))
+        ms = cuda_time_ms(lambda: fn(*args), 20)
         rows.append({"case": name, "P": p, "K": k, "O": o, "ms": ms, "equal": True})
         print(f"{name}: {ms:.4f} ms, equal to the plain version [{card}]", flush=True)
     print(json.dumps({"card": card, "cases": rows}))

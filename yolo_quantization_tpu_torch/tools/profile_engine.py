@@ -6,13 +6,13 @@ For the flagship, ``use_s2d`` and C-parity configurations (yolov3-tiny, 416,
 5 classes, seeded weights) at each batch (default 16 and 64): the wall time
 per forward, the summed device kernel time, the device busy share (kernel
 time over wall time of the profiled window) and the kernels that take the
-most device time.  Prints one JSON line per configuration and batch.
+most device time, and the share of each hand-written kernel (K1 sums its
+tile instantiations).  Prints one JSON line per configuration and batch.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -23,8 +23,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from yolo_quantization_tpu_torch.infer.engine import build_forward, device_arrays
 from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
+from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity
 
 ITERS = 5
+# the hand-written kernels by the names of their __global__ functions
+KERNELS = {"K1 qconv": ("qconv_mma_kernel", "qconv_i16_kernel"), "K2 s2d_qconv": ("s2d_kernel",)}
 
 
 def configurations():
@@ -56,10 +59,16 @@ def breakdown(program, option: dict, batch: int, top: int = 6) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / ITERS
     events.sort(key=lambda e: -e.self_device_time_total)
+
+    def share(names) -> float:
+        ms = sum(e.self_device_time_total for e in events if any(n in e.key for n in names))
+        return ms / 1e3 / ITERS / device_ms
+
     return {
         "wall_ms_per_forward": wall_ms,
         "device_ms_per_forward": device_ms,
         "busy_share": device_ms / wall_ms,
+        "kernel_shares": {name: share(names) for name, names in KERNELS.items()},
         "top_kernels": [
             {"name": e.key[:80], "share": e.self_device_time_total / 1e3 / ITERS / device_ms,
              "calls_per_forward": e.count / ITERS}
@@ -71,10 +80,7 @@ def breakdown(program, option: dict, batch: int, top: int = 6) -> dict:
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_identity()
     batches = [int(a) for a in argv] or [16, 64]
     for name, (program, option) in configurations().items():
         for batch in batches:
