@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      gemm_probe.cu), one nvcc each, all started together; print each
      kernel's ptxas registers, spills and static shared memory, and its
      IMMA (int8 tensor-core) and IDP (__dp4a) instructions from cuobjdump's
-     SASS; K1's int8 instantiations and orientation_a must hold IMMA, and
-     K1's symmetric ones no IDP;
+     SASS; K1's int8 instantiations, every K2 instantiation and both probe
+     kernels must hold IMMA, and K1's symmetric ones, K2's and
+     orientation_b no IDP;
   3. K1 (qconv) vs its plain PyTorch version, bit for bit: every flagship
      conv shape at 416x416, at batch 2 plain and with each reference-engine
      option (asymmetric w_zp, per-image zp and (N,Co) bias/m, exact_leaky,
@@ -21,11 +22,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      (Co 30/130, Cin 3/6/16, M off every tile, pooled partial tiles, every
      block tile of the launch table, K=1, every activation, ties, uint8 in);
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
-     batch 2, every activation, per-image zp/bias/m, exact_leaky, non-square
-     maps and partial tiles;
+     batch 2, every activation, per-image zp/bias/m, exact_leaky, and at
+     batch 16 (the timed shapes) plain and with the per-image options;
+     non-square maps, and a case per entry of K2's tile table with partial
+     M and N tiles and an arbitrary block kernel;
   5. K3 (orientation_a/b): the probe's four cases at the script's full
      sizes, each kernel vs its plain version bit for bit — the probe's main
-     path, whose launches are counted;
+     path, whose launches are counted; then orientation_b on a P that is not
+     a multiple of its 128-pixel tile;
   6. engines on the GPU vs on the CPU, every layer's codes equal, float32 and
      uint8 batches of 4: the flagship (13 K1 launches per forward), the
      flagship with use_s2d (3 K2 + 10 K1), the C-parity configuration (leaky,
@@ -150,9 +154,9 @@ def demangle(names) -> dict[str, str]:
 
 
 def phase_kernel_report(libs) -> None:
-    """Print ptxas and SASS facts per kernel; K1's int8 instantiations and
-    orientation_a must run on IMMA, and K1's symmetric int8 ones must hold
-    no IDP (no product on __dp4a)."""
+    """Print ptxas and SASS facts per kernel; K1's int8 instantiations, K2's
+    and the probe kernels must run on IMMA, and K1's symmetric int8 ones,
+    K2's and orientation_b must hold no IDP (no product on __dp4a)."""
     from yolo_quantization_tpu_torch.ops import _build
 
     for name in libs:
@@ -165,8 +169,10 @@ def phase_kernel_report(libs) -> None:
             log(f"    {name}: {readable[fn]}: {regs} registers, spill stores/loads "
                 f"{info.get('spill', '?')} B, static smem {info.get('smem', '?')} B, "
                 f"IMMA {counts['IMMA']}, IDP {counts['IDP']}")
-            if ("qconv_mma" in fn or "orientation_a" in fn) and counts["IMMA"] == 0:
+            if (name != "qconv" or "qconv_mma" in fn) and counts["IMMA"] == 0:
                 raise AssertionError(f"{readable[fn]}: no IMMA instruction")
+            if (name == "s2d_qconv" or "orientation_b" in fn) and counts["IDP"]:
+                raise AssertionError(f"{readable[fn]}: a product runs on __dp4a")
             args = re.search(r"qconv_mma_kernelI((?:L[a-z]\d+E)+)E", fn)
             asym = args and re.findall(r"L[a-z](\d+)E", args.group(1))[4] == "1"
             if args and not asym and counts["IDP"]:
@@ -286,8 +292,24 @@ def phase_k1(cuda_qconv, qconv, rng, errors):
     return len(cases)
 
 
+# K2's tile edges (n, h, w, c, o), by the block tile its launch table gives
+# them on a 132-SM card, with partial M and N tiles (as
+# tests/test_torch_s2d.py::EDGES)
+S2D_TILE_EDGES = (
+    # the stem loader (C == 3): 128x64
+    (1, 30, 22, 3, 16), (2, 12, 20, 3, 24),
+    # the byte gather (other C % 16 != 0): 128x64
+    (1, 10, 14, 6, 8), (3, 8, 6, 7, 40),
+    # 16-byte copies, N = 4*O <= 64: 128x64, then 64x64 (fewer blocks than SMs)
+    (2, 184, 184, 16, 13), (1, 20, 36, 16, 12), (3, 22, 18, 32, 16),
+    # N > 64: 128x128, then 64x64
+    (2, 200, 160, 16, 40), (4, 120, 100, 48, 33), (1, 10, 6, 64, 20),
+)
+
+
 def s2d_cases():
-    """(name, n, h, w, ci, co, act, per-image zp/bias/m, exact_leaky)."""
+    """(name, n, h, w, ci, co, act, per-image zp/bias/m, exact_leaky, an
+    arbitrary block kernel instead of _s2d_weights')."""
     from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_LINEAR, ACT_RELU, ACT_RELU6
     from yolo_quantization_tpu_torch.tools.kernel_timings import S2D_LAYERS, flagship_layers
 
@@ -296,13 +318,17 @@ def s2d_cases():
         if i not in S2D_LAYERS:
             continue
         for act in (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6):
-            cases.append((f"layer{i}_act{act}", 2, h, w, ci, co, act, False, False))
-        cases.append((f"layer{i}_dyn_exact", 2, h, w, ci, co, ACT_LEAKY, True, True))
+            cases.append((f"layer{i}_act{act}", 2, h, w, ci, co, act, False, False, False))
+        cases.append((f"layer{i}_dyn_exact", 2, h, w, ci, co, ACT_LEAKY, True, True, False))
+        cases.append((f"layer{i}_b16", 16, h, w, ci, co, ACT_RELU6, False, False, False))
+        cases.append((f"layer{i}_b16_dyn_exact", 16, h, w, ci, co, ACT_LEAKY, True, True, False))
     cases += [
-        ("nonsquare_partial_c5", 2, 30, 22, 5, 24, ACT_LEAKY, True, True),
-        ("nonsquare_partial_c16", 3, 50, 84, 16, 40, ACT_RELU6, False, False),
-        ("nonsquare_c32", 1, 36, 20, 32, 64, ACT_LINEAR, True, False),
+        ("nonsquare_partial_c5", 2, 30, 22, 5, 24, ACT_LEAKY, True, True, False),
+        ("nonsquare_partial_c16", 3, 50, 84, 16, 40, ACT_RELU6, False, False, False),
+        ("nonsquare_c32", 1, 36, 20, 32, 64, ACT_LINEAR, True, False, False),
     ]
+    for j, (n, h, w, ci, co) in enumerate(S2D_TILE_EDGES):
+        cases.append((f"edge{j}", n, h, w, ci, co, ACT_LEAKY, True, True, True))
     return cases
 
 
@@ -311,14 +337,18 @@ def phase_k2(cuda_s2d, qconv, rng, errors):
     from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
     cases = s2d_cases()
-    for (name, n, h, w, ci, co, act, dyn, exact) in cases:
+    for (name, n, h, w, ci, co, act, dyn, exact, any_w) in cases:
         x, wt, bias, m = random_layer(rng, n, h, w, ci, co, 3)
+        w_s2d = _s2d_weights(wt)
+        if any_w:  # every tap nonzero: 4x the terms, so a smaller m keeps codes off the clamps
+            w_s2d = rng.integers(-127, 128, w_s2d.shape).astype(np.int8)
+            m = m / 2
         if dyn:
             bias = rng.integers(-(2**14), 2**14, (n, co)).astype(np.int32)
             m = np.tile(m, (n, 1)) * rng.uniform(0.8, 1.25, (n, 1)).astype(np.float32)
         x_zp = rng.integers(-128, 128, (n,)).astype(np.int32) if dyn else int(rng.integers(-128, 128))
         out_zp = int(rng.integers(0, 256))
-        xt, ws_t, b_t, m_t = (torch.from_numpy(a).cuda() for a in (x, _s2d_weights(wt), bias, m))
+        xt, ws_t, b_t, m_t = (torch.from_numpy(a).cuda() for a in (x, w_s2d, bias, m))
         zp_t = torch.from_numpy(x_zp).cuda() if dyn else x_zp
         ref = qconv.s2d_conv_phase_max(qconv.space_to_depth(xt), ws_t, b_t, m_t, zp_t, out_zp,
                                        act=act, exact_leaky=exact)
@@ -326,7 +356,7 @@ def phase_k2(cuda_s2d, qconv, rng, errors):
                                                out_zp_static=out_zp, exact_leaky=exact)
         errors.check("s2d_qconv", name, got, ref)
         log(f"  {name:24s} x{(n, h, w, ci)} -> {co} act={act} per_image={dyn} "
-            f"exact_leaky={exact}: equal")
+            f"exact_leaky={exact}{' any w_s2d' if any_w else ''}: equal")
     return len(cases)
 
 
@@ -340,6 +370,12 @@ def phase_probe(probe, errors):
         log(f"  {name}: P={p} K={k} O={o}: equal (wrapped int8)")
     if launches != {"orientation_a": 2, "orientation_b": 2}:
         raise AssertionError(f"probe launches {launches}, expected 2 of each")
+    # B's kernel walks 128-pixel tiles: a P off the tile (not counted above)
+    for k, o, p in ((128, 64, 128 * 5407 + 48), (32, 16, 128 * 21 + 16)):
+        w, x = probe.case_inputs("b", k, o, p, 11, "cuda")
+        errors.check("orientation_b", f"partial tile P={p}", probe.orientation_b(w, x),
+                     probe.plain_matmul_i8(w, x))
+        log(f"  B P={p} K={k} O={o} (P % 128 = {p % 128}): equal (wrapped int8)")
     return results, launches
 
 

@@ -51,14 +51,81 @@ def test_cases_match_jax_formula(scale):
 
 
 def test_shape_rules():
-    probe._check_shapes(8, 32, 16, "b")
+    probe._check_shapes(16, 32, 16, "b")
     probe._check_shapes(8, 128, 64, "a")
+    probe._check_shapes(2768896 // 4, 128, 64, "b")
     for bad in ((8, 30, 16, "a"), (8, 32, 24, "a"), (6, 32, 16, "b"), (8, 512, 16, "a"),
-                (8, 36, 16, "a"), (8, 32, 80, "a")):
+                (8, 36, 16, "a"), (8, 32, 80, "a"), (8, 32, 16, "b"), (24, 32, 16, "b"),
+                (16, 36, 16, "b"), (16, 32, 80, "b")):
         with pytest.raises(ValueError, match="probe kernel shapes"):
             probe._check_shapes(*bad)
     with pytest.raises(ValueError, match="orientation_a"):
         probe.orientation_a(torch.zeros((4, 8), dtype=torch.int8), torch.zeros((4, 16), dtype=torch.int8))
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm: result byte i is byte (s >> 4i) & 7 of y:x."""
+    b = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(b[(s >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _b_k_order(j: int) -> int:
+    """csrc/gemm_probe.cu::b_k_order."""
+    return 2 * (j >> 2) + (j & 1) + ((j & 2) << 2)
+
+
+def _orientation_b_emulated(w: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """orientation_b as the kernel computes it, lane by lane: x tiles as
+    stored, read with the b16 ldmatrix.trans (lane (g, t) of matrix j gets
+    rows 2t, 2t+1 at pixel pair g), split by __byte_perm into even- and
+    odd-pixel words of 4 K-bytes; w's copy with K in b_k_order; the m16n8k32
+    products; each thread's columns 2t, 2t+1 of the two tiles stored as one
+    word of pixels 4t .. 4t+3."""
+    (o, k), p = w.shape, x.shape[1]
+    xu = x.view(np.uint8).astype(np.int64)
+    ws = np.stack([w[:, k0 + (j & ~15) + _b_k_order(j & 15)]
+                   for k0 in range(0, k, 32) for j in range(32)], axis=1).astype(np.int64)
+    out = np.zeros((o, p), np.int64)
+    for p0 in range(0, p, 16):  # one group of 16 pixels: an even and an odd n8 tile
+        acc = {"even": np.zeros((o, 8), np.int64), "odd": np.zeros((o, 8), np.int64)}
+        for k0 in range(0, k, 32):
+            frag = {"even": np.zeros((32, 8), np.int64), "odd": np.zeros((32, 8), np.int64)}
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                r = []
+                for j in range(4):
+                    def elem(row):  # b16 element (row, g) of matrix j
+                        kk = k0 + 8 * j + row
+                        return int(xu[kk, p0 + 2 * g] | xu[kk, p0 + 2 * g + 1] << 8)
+                    r.append(elem(2 * t) | elem(2 * t + 1) << 16)
+                words = {"even": (_byte_perm(r[0], r[1], 0x6420), _byte_perm(r[2], r[3], 0x6420)),
+                         "odd": (_byte_perm(r[0], r[1], 0x7531), _byte_perm(r[2], r[3], 0x7531))}
+                for tile, (b0, b1) in words.items():  # B fragment: column g, K 4t.. and 16+4t..
+                    for e in range(4):
+                        frag[tile][4 * t + e, g] = (b0 >> (8 * e)) & 0xFF
+                        frag[tile][16 + 4 * t + e, g] = (b1 >> (8 * e)) & 0xFF
+            for tile in acc:
+                b = (frag[tile] + 128) % 256 - 128
+                acc[tile] += ws[:, k0:k0 + 32] @ b
+        for t in range(4):  # thread (g, t)'s word: pixels 4t .. 4t+3
+            for e, (tile, col) in enumerate((("even", 2 * t), ("odd", 2 * t),
+                                              ("even", 2 * t + 1), ("odd", 2 * t + 1))):
+                out[:, p0 + 4 * t + e] = acc[tile][:, col]
+    return ((out + 128) % 256 - 128).astype(np.int8)
+
+
+def test_b_k_order_is_a_permutation():
+    assert sorted(_b_k_order(j) for j in range(16)) == list(range(16))
+    assert [_b_k_order(4 * 2 + e) for e in range(4)] == [4, 5, 12, 13]  # lane t = 2
+
+
+@pytest.mark.parametrize("k,o,p", [(32, 16, 48), (64, 32, 32), (128, 64, 16)])
+def test_orientation_b_fragments_match_jax(rng, k, o, p):
+    """K3b's byte transpose and column permutation reproduce x's columns as
+    K-contiguous words: the emulated kernel equals the JAX probe formula."""
+    w = rng.integers(-128, 128, (o, k), dtype=np.int8)
+    x = rng.integers(-128, 128, (k, p), dtype=np.int8)
+    np.testing.assert_array_equal(_orientation_b_emulated(w, x), jax_dot_i8(w, x))
 
 
 @pytest.mark.cuda
@@ -72,6 +139,17 @@ def test_cuda_kernels_match_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,o,p", [(32, 16, 128 * 37 + 16), (128, 64, 128 * 5 + 80), (64, 48, 16)])
+def test_cuda_orientation_b_partial_tile(k, o, p):
+    """P not a multiple of the kernel's 128-pixel tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    w, x = probe.case_inputs("b", k, o, p, 7, "cuda")
+    got = probe.orientation_b(w, x)
+    assert torch.equal(got.cpu(), probe.plain_matmul_i8(w.cpu(), x.cpu()))
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_unaligned_operand():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the alignment check guards the kernel only)")
@@ -79,3 +157,6 @@ def test_cuda_kernel_rejects_unaligned_operand():
     w = torch.zeros((32, 16), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="16-byte boundary"):
         probe.orientation_a(x, w)
+    xb = torch.zeros(32 * 64 + 16, dtype=torch.int8, device="cuda")[1:32 * 64 + 1].view(32, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        probe.orientation_b(torch.zeros((16, 32), dtype=torch.int8, device="cuda"), xb)

@@ -118,16 +118,147 @@ def test_wrapper_rejects_bad_shapes():
 
 
 def test_pack_weights_layout():
-    w = torch.arange(3 * 3 * 8 * 12, dtype=torch.int32).reshape(3, 3, 8, 12).to(torch.int8)
+    """B of the implicit GEMM: K = w_s2d's flatten order, and output slot
+    ph*O + o at column 16*(o//4) + 8*(ph//2) + 2*(o%4) + ph%2, O padded to
+    4 and K to 32 with zeros."""
+    c, o = 5, 5
+    w = torch.arange(3 * 3 * 4 * c * 4 * o, dtype=torch.int32).remainder(251).sub(125).to(torch.int8)
+    w = w.reshape(3, 3, 4 * c, 4 * o)
     p = cuda_s2d.pack_weights(w)
-    assert p.shape == (4, 3, 3, 3, 8) and p.is_contiguous()
+    assert p.shape == (32, 192) == cuda_s2d.packed_shape(c, o) and p.is_contiguous()
+    flat = w.reshape(36 * c, 4 * o)
+    seen = set()
     for ph in range(4):
-        for o in range(3):
-            assert torch.equal(p[ph, o], w[..., ph * 3 + o])
+        for ch in range(o):
+            col = _b_column(ch, ph)
+            assert torch.equal(p[col, :36 * c], flat[:, ph * o + ch])
+            seen.add(col)
+    assert not p[sorted(set(range(32)) - seen)].any()  # channels 5..7: zero columns
+    assert not p[:, 36 * c:].any()  # K 180 -> 192 with zeros
+
+
+def _b_column(o, ph):
+    return 16 * (o // 4) + 8 * (ph // 2) + 2 * (o % 4) + ph % 2
+
+
+def _s2d_rows(x, x_zp):
+    """Numpy im2col of the s2d GEMM: rows are output blocks (n, by, bx),
+    column k = tap*4C + (qy*2+qx)*C + c holds pixel (2by-2+2dy+qy,
+    2bx-2+2dx+qx, c) for tap = dy*3 + dx, the zero point outside the map, K
+    zero-padded to a multiple of 32."""
+    n, h, w, c = x.shape
+    xp = np.full((n, h + 4, w + 4, c), x_zp, np.int64)
+    xp[:, 2:h + 2, 2:w + 2] = x
+    cols = [xp[:, 2 * dy + qy:2 * dy + qy + h:2, 2 * dx + qx:2 * dx + qx + w:2]
+            for dy in range(3) for dx in range(3) for qy in range(2) for qx in range(2)]
+    a = np.concatenate(cols, axis=-1).reshape(n * (h // 2) * (w // 2), 36 * c)
+    return np.pad(a, ((0, 0), (0, -a.shape[1] % 32)))
+
+
+def _loader_rows(x, x_zp):
+    """The rows as s2d_qconv.cu's A loader for this C builds them: kStem
+    (C == 3) from 9 16-bit words per patch row, kVec (C % 16 == 0) in
+    16-byte chunks of one pixel, kByte with its (c, q, dx, dy) walk."""
+    n, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    k_real, k_pad = 36 * c, -(-36 * c // 32) * 32
+    u8 = x.view(np.uint8).astype(np.int64)
+    zp = x_zp & 0xFF
+    rows = np.zeros((n * h2 * w2, k_pad), np.int64)
+    for r in range(len(rows)):
+        img, by, bx = r // (h2 * w2), r % (h2 * w2) // w2, r % w2
+        iy0, ix0 = 2 * by, 2 * bx
+
+        def pixel(ry, rx, ch):
+            iy, ix = iy0 + ry, ix0 + rx
+            return u8[img, iy, ix, ch] if 0 <= iy < h and 0 <= ix < w else zp
+
+        if c == 3:
+            flat = u8.reshape(n, h, w * 3)
+            u = np.zeros((6, 9), np.int64)
+            for pr in range(6):
+                iy = iy0 - 2 + pr
+                for j in range(9):
+                    if 0 <= iy < h and 0 <= bx + j // 3 - 1 < w2:
+                        b0 = (2 * bx - 2) * 3 + 2 * j
+                        u[pr, j] = flat[img, iy, b0] | flat[img, iy, b0 + 1] << 8
+                    else:
+                        u[pr, j] = zp * 0x0101
+            for k in range(108):
+                tap, q, ch = k // 12, k % 12 // 3, k % 3
+                pr, bb = 2 * (tap // 3) + q // 2, (2 * (tap % 3) + q % 2) * 3 + ch
+                rows[r, k] = u[pr, bb // 2] >> (8 * (bb % 2)) & 0xFF
+        elif c % 16 == 0:
+            for kk in range(0, k_real, 16):
+                tap, s = divmod(kk, 4 * c)
+                q, ch = divmod(s, c)
+                ry, rx = 2 * (tap // 3) + (q >> 1) - 2, 2 * (tap % 3) + (q & 1) - 2
+                rows[r, kk:kk + 16] = [pixel(ry, rx, ch + i) for i in range(16)]
+        else:
+            for kb in range(0, k_pad, 32):
+                tap, s = divmod(kb, 4 * c)
+                q, ch = divmod(s, c)
+                dy, dx = divmod(tap, 3)
+                for b in range(32):
+                    if kb + b < k_real:
+                        rows[r, kb + b] = pixel(2 * dy + (q >> 1) - 2, 2 * dx + (q & 1) - 2, ch)
+                    ch = 0 if ch + 1 == c else ch + 1
+                    q = q if ch else 0 if q == 3 else q + 1
+                    dx = dx if ch or q else 0 if dx == 2 else dx + 1
+                    dy = dy if ch or q or dx else dy + 1
+    return (rows + 128) % 256 - 128  # the uint8 lanes back to shifted int8 codes
+
+
+@pytest.mark.parametrize("c,o", [(3, 16), (3, 6), (5, 24), (6, 3), (16, 32), (32, 9)])
+def test_implicit_gemm_phase_max_matches_jax(rng, c, o):
+    """K2's GEMM view: each loader's rows times the packed B, and the max
+    over the 4 columns a thread holds for channel 4*group + t (columns 2t,
+    2t+1 of the group's two n8 tiles), equal the JAX conv over the
+    space-to-depth input maxed over the phase groups; for an arbitrary block
+    kernel, not only _s2d_weights' (whose structural zeros the kernel
+    multiplies anyway)."""
+    n, h, w, x_zp = 2, 6, 10, -37
+    x = rng.integers(-128, 128, (n, h, w, c), dtype=np.int8)
+    w_s2d = rng.integers(-128, 128, (3, 3, 4 * c, 4 * o), dtype=np.int8)
+    a = _loader_rows(x, x_zp)
+    np.testing.assert_array_equal(a, _s2d_rows(x, x_zp))
+    b = cuda_s2d.pack_weights(torch.from_numpy(w_s2d)).numpy().astype(np.int64)
+    assert b.shape == cuda_s2d.packed_shape(c, o) and b.shape[1] == a.shape[1]
+    gemm = a @ b.T
+    got = np.zeros((len(a), o), np.int64)
+    for group in range(b.shape[0] // 16):
+        for t in range(4):
+            if 4 * group + t < o:
+                cols = 16 * group + np.array([2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t])
+                got[:, 4 * group + t] = gemm[:, cols].max(axis=1)
+    xs = tqconv.space_to_depth(torch.from_numpy(x)).numpy()
+    acc = np.asarray(jqconv.conv_acc_int32(jnp.asarray(xs), jnp.asarray(w_s2d), jnp.int32(x_zp),
+                                           jnp.zeros((4 * o,), jnp.int32), 1, 1, symmetric=True))
+    want = np.max(acc.reshape(n, h // 2, w // 2, 4, o), axis=3)
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+# the flagship's s2d stem layers 0, 2 and 4 at batch 16, the timed shapes
+STEM_B16 = [(16, 416, 416, 3, 16, ACT_RELU6), (16, 208, 208, 16, 32, ACT_RELU6),
+            (16, 104, 104, 32, 64, ACT_RELU6)]
+# shapes that reach each entry of the kernel's tile table on a 132-SM card,
+# with partial M and N tiles
+EDGES = [
+    # n, h, w, c, o
+    # the stem loader (C == 3): 128x64
+    (1, 30, 22, 3, 16), (2, 12, 20, 3, 24),
+    # the byte gather (other C % 16 != 0): 128x64
+    (2, 30, 22, 5, 24), (1, 10, 14, 6, 8), (3, 8, 6, 7, 40),
+    # 16-byte copies, N = 4*O <= 64: 128x64, then 64x64 (fewer blocks than SMs)
+    (2, 184, 184, 16, 16), (2, 184, 184, 16, 13), (1, 20, 36, 16, 12), (3, 22, 18, 32, 16),
+    # N > 64: 128x128, then 64x64
+    (2, 208, 208, 16, 32), (2, 200, 160, 16, 40), (4, 120, 100, 48, 33),
+    (1, 36, 20, 32, 64), (1, 10, 6, 64, 20),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,ci,co,act", PALLAS_SHAPES + [
+@pytest.mark.parametrize("n,h,w,ci,co,act", PALLAS_SHAPES + STEM_B16 + [
     (2, 30, 22, 5, 24, ACT_LEAKY), (2, 104, 104, 32, 64, ACT_RELU6),
 ])
 @pytest.mark.parametrize("per_image", [False, True])
@@ -144,3 +275,35 @@ def test_cuda_kernel_matches_plain(rng, n, h, w, ci, co, act, per_image):
     torch.cuda.synchronize()
     assert cuda_s2d.launches == before + 1
     assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,ci,co", EDGES)
+def test_cuda_kernel_tile_edges(rng, n, h, w, ci, co):
+    """Every tile of the launch table, with an arbitrary block kernel (the
+    kernel does not rely on _s2d_weights' zeros) and per-image options."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    x, _, bias, m, x_zp, out_zp = _case(rng, n, h, w, ci, co, per_image=True)
+    w_s2d = rng.integers(-128, 128, (3, 3, 4 * ci, 4 * co), dtype=np.int8)
+    m = (m / 6).astype(np.float32)  # the block kernel's 4x taps: keep codes off the clamps
+    args = [torch.from_numpy(a) for a in (x, w_s2d, bias, m, x_zp)]
+    kw = dict(act=ACT_LEAKY, out_zp_static=out_zp, exact_leaky=True)
+    ref = cuda_s2d.s2d_conv_phase_max_cuda(*args, **kw)
+    got = cuda_s2d.s2d_conv_phase_max_cuda(*[a.cuda() for a in args], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_unaligned_input():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the alignment check guards the kernel only)")
+    n, h, w, c, o = 1, 6, 6, 16, 8
+    flat = torch.zeros(n * h * w * c + 16, dtype=torch.int8, device="cuda")
+    x = flat[1:1 + n * h * w * c].view(n, h, w, c)  # contiguous, one byte off
+    w_s2d = torch.zeros((3, 3, 4 * c, 4 * o), dtype=torch.int8, device="cuda")
+    bias = torch.zeros(o, dtype=torch.int32, device="cuda")
+    m = torch.ones(o, dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cuda_s2d.s2d_conv_phase_max_cuda(x, w_s2d, bias, m, 0)

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's int8 kernels (qconv.cu, s2d_qconv.cu,
-// gemm_probe.cu): the requant epilogue, the code words of the scalar paths,
-// and inline-PTX wrappers of the int8 tensor-core pieces (mma.sync s8,
-// ldmatrix, cp.async).
+// gemm_probe.cu): the requant epilogue, the per-device SM count, and
+// inline-PTX wrappers of the int8 tensor-core pieces (mma.sync s8, ldmatrix,
+// cp.async).
 //
 // The epilogue is bit-exact with the reference's XLA path
 // (yolo_quantization_tpu/ops/qconv.py::requant_activate): (float) is a
@@ -64,32 +64,22 @@ __device__ __forceinline__ int requant(int acc, int bias, float m, const Epilogu
   return (int)fminf(fmaxf(__fadd_rn(v, c.zps), c.lo), c.hi);
 }
 
-// One 32-bit word of codes: 4 int8 lanes, or 2 int16 lanes with I16.
-template <bool I16>
-struct Word {
-  static constexpr int kLanes = I16 ? 2 : 4;
+constexpr int kMaxDevices = 64;  // per-device launch facts
 
-  // a lane's code placed in its slot of the word
-  __device__ static __forceinline__ uint32_t lane(int8_t code, int b) {
-    return I16 ? (uint32_t)(uint16_t)(int16_t)code << (16 * b)
-               : (uint32_t)(uint8_t)code << (8 * b);
+// The current device and its SM count, read once per device (per library:
+// each .cu file has its own copy).
+inline cudaError_t device_sms(int& dev, int& sms) {
+  static int count[kMaxDevices] = {0};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
   }
-
-  // acc + the word dot product: __dp4a on int8 lanes; plain int32
-  // multiply-adds on int16 lanes (the s16 x s16 -> s32 carrier)
-  __device__ static __forceinline__ int mac(int a, int b, int acc) {
-    if (I16) {
-      return acc + (int)(int16_t)a * (int)(int16_t)b + (a >> 16) * (b >> 16);
-    }
-    return __dp4a(a, b, acc);
-  }
-
-  // acc + the sum of the word's lanes (the patchsum of asymmetric weights)
-  __device__ static __forceinline__ int lane_sum(int a, int acc) {
-    if (I16) return acc + (int)(int16_t)a + (a >> 16);
-    return __dp4a(a, 0x01010101, acc);
-  }
-};
+  sms = count[dev];
+  return cudaSuccess;
+}
 
 // ---- int8 tensor cores (sm_80+ warp-level PTX; CUTLASS's headers would
 // lengthen every build) ----
@@ -118,6 +108,17 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
 // receives word l % 4 of row l / 4 of each matrix.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same with .trans: lane l receives column l / 4 of each matrix, rows
+// 2 (l % 4) and 2 (l % 4) + 1 (b16 elements).  On bytes stored k-major (8
+// rows of k, 16 bytes along n) a lane's word is (k 2t, n 2g), (k 2t, n 2g+1),
+// (k 2t+1, n 2g), (k 2t+1, n 2g+1): Hopper has no 8-bit transpose, so a
+// __byte_perm of two such words gives 4 k-bytes of one column.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }

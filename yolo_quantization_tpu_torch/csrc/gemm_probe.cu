@@ -10,23 +10,30 @@
 // What bounds it on the H100: bytes for the probe's shapes (K <= 128 and
 // O <= 64 give at most 64 int8 operations per byte moved, far below the
 // card's int8 ridge), so both kernels stream x once and write the output
-// once, with coalesced accesses; the small weight matrix is staged in shared
-// memory per block.
-//   - A (tensor cores): the grid runs over P only, one persistent block per
-//     slot the card holds, each walking 128-row tiles of x through a
-//     3-stage ring of 16-byte cp.async copies; one block covers all O
-//     columns, so x is read once.  w is staged once per block, transposed
-//     to the K-contiguous B operand.  Products: mma.sync m16n8k32 s8
-//     (common.cuh), operands by ldmatrix; shared rows are K + 16 bytes, so
-//     the 8 rows of an ldmatrix phase fall on distinct bank groups.  Each
-//     warp narrows its 32 x O accumulators with (uint8_t)acc into shared
-//     memory and writes them as contiguous 16-byte stores.
-//   - B (__dp4a): one thread per 4 consecutive pixels and 16 output rows;
-//     4x4 byte blocks of x (4 k's x 4 pixels) are transposed in registers
-//     with __byte_perm into words along K; w's rows are words along K as
-//     stored.
+// once, with 16-byte accesses.  Both run on the int8 tensor cores (mma.sync
+// m16n8k32 s8, common.cuh) with the same structure: the grid runs over P
+// only, one persistent block per slot the card holds, each walking tiles of
+// x through a 3-stage ring of 16-byte cp.async copies; one block covers all
+// O, so x is read once; the small w is staged in shared memory once per
+// block; each warp narrows its accumulators with (uint8_t)acc into shared
+// memory and writes them as contiguous 16-byte stores.  Shared rows are
+// 16 bytes longer than their data, so the 8 rows of an ldmatrix phase fall
+// on distinct bank groups.
+//   - A: 128-row tiles of x (P-major, K contiguous) are the mma's A operand
+//     as stored; w is transposed once to the K-contiguous B operand.
+//   - B: w (O, K) is the A operand as stored.  x is the B operand, but it is
+//     P-contiguous and the s8 mma wants 4 consecutive K-bytes of a column
+//     in each register; Hopper has no 8-bit ldmatrix.trans (and wgmma
+//     transposes 16-bit types only).  So 128-pixel tiles of x are staged as
+//     stored, read with the b16 ldmatrix.trans (a pixel pair is one b16),
+//     and one __byte_perm per register splits each pair into an even-pixel
+//     and an odd-pixel word of 4 K-bytes.  Those K-bytes are rows
+//     2t, 2t+1, 8+2t, 9+2t of a 16-row group, so w's shared copy holds K in
+//     that order (b_k_order).  The even and odd words are two n8 tiles, and
+//     a thread's columns 2t, 2t+1 of both are pixels 4t .. 4t+3: the store
+//     is one word per output row.
 // Shapes are checked by the wrapper: A: K % 32 == 0 (<= 256), O % 16 == 0
-// (<= 64); B: K % 4 == 0 (<= 256), O % 16 == 0, P % 4 == 0.
+// (<= 64); B: the same and P % 16 == 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,19 +42,33 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOT = 16;      // output rows per block (B)
 constexpr int kMaxKW = 64;   // K <= 256
+constexpr int kAMaxO = 64;   // O <= 64
 
 constexpr int kATile = 128;     // rows of x per tile (A)
 constexpr int kAThreads = 128;  // 4 warps of 32 rows
 constexpr int kAStages = 3;
-constexpr int kAMaxO = 64;
-constexpr int kMaxDevices = 64;  // per-device launch facts in launch_a
+
+constexpr int kBTile = 128;          // pixels of x per tile (B)
+constexpr int kBThreads = 128;       // 4 warps of 32 pixels
+constexpr int kBStages = 3;
+constexpr int kBRow = kBTile + 16;   // shared row stride of B's x and output tiles
 
 // dynamic shared memory of orientation_a at depth k and O = 16 * NT
 constexpr int a_smem_bytes(int k, int nt) {
   return (16 * nt + kAStages * kATile) * (k + 16) + kATile * 16 * nt;
+}
+
+// dynamic shared memory of orientation_b at depth k and O = 16 * MI
+constexpr int b_smem_bytes(int k, int mi) {
+  return 16 * mi * (k + 16) + kBStages * k * kBRow + 16 * mi * kBRow;
+}
+
+// The x row of a 16-row group that meets K-byte j of w's shared copy: the
+// transposed ldmatrix gives lane t rows 2t, 2t+1 and 8+2t, 9+2t, which the
+// mma reads as its K-bytes 4t .. 4t+3.
+__host__ __device__ constexpr int b_k_order(int j) {
+  return 2 * (j >> 2) + (j & 1) + ((j & 2) << 2);
 }
 
 template <int NT>  // O = 16 * NT output columns
@@ -138,87 +159,167 @@ orientation_a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int NT>
-int launch_a(const int8_t* x, const int8_t* w, uint8_t* out, int p, int k, cudaStream_t stream) {
-  const auto kernel = orientation_a_kernel<NT>;
-  const int smem = a_smem_bytes(k, NT);
-  // Set up once per device and depth, outside any graph capture: the smem
-  // attribute, the SM count and how many blocks of this size an SM holds.
-  static int sms[kMaxDevices] = {0};
-  static int per_sm[kMaxDevices][kMaxKW * 4 / 32 + 1] = {{0}};
+template <int MI>  // O = 16 * MI output rows
+__global__ void __launch_bounds__(kBThreads)
+orientation_b_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ x,
+                     uint8_t* __restrict__ out, int p_cols, int k, int tiles) {
+  constexpr int O = 16 * MI;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int rs = k + 16;                          // shared row stride of w in bytes
+  uint8_t* const ws = smem;                       // [O][rs]: w, K in b_k_order per 16
+  uint8_t* const xs = smem + O * rs;              // [kBStages][k][kBRow]: x tiles as stored
+  uint8_t* const os = xs + kBStages * k * kBRow;  // [O][kBRow]: narrowed outputs
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  auto load = [&](int i) {  // this block's i-th tile into ring slot i % kBStages
+    const long long p0 = (long long)(blockIdx.x + i * gridDim.x) * kBTile;
+    uint8_t* dst = xs + (i % kBStages) * k * kBRow;
+    for (int idx = t; idx < k * (kBTile / 16); idx += kBThreads) {
+      const int r = idx / (kBTile / 16), c = idx % (kBTile / 16);
+      const bool ok = p0 + c * 16 < p_cols;  // P % 16 == 0: a chunk is all in or all out
+      yq::cp_async16(yq::smem_addr(dst + r * kBRow + c * 16),
+                     ok ? x + (long long)r * p_cols + p0 + c * 16 : x, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kBStages - 1; ++s) {
+    if (s < mine) load(s);
+    yq::cp_async_commit();
+  }
+  for (int idx = t; idx < O * k; idx += kBThreads) {  // w (O, K), K reordered within each 16
+    const int o = idx / k, kk = idx - o * k;
+    ws[o * rs + kk] = (uint8_t)w[o * k + (kk & ~15) + b_k_order(kk & 15)];
+  }
+
+  const int g = lane >> 2, tq = lane & 3;
+  for (int i = 0; i < mine; ++i) {
+    yq::cp_async_wait<kBStages - 2>();
+    __syncthreads();  // tile i is in (and w, at i = 0); every warp is done with tile i - 1
+    if (i + kBStages - 1 < mine) load(i + kBStages - 1);
+    yq::cp_async_commit();
+
+    // this warp's 32 pixels: two groups of 16, each two n8 tiles (even and
+    // odd pixels): acc[mi][2 * group + parity]
+    const uint8_t* xt = xs + (i % kBStages) * k * kBRow + warp * 32;
+    int acc[MI][4][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
+    for (int k0 = 0; k0 < k; k0 += 32) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        yq::ldmatrix_x4(af[mi], yq::smem_addr(ws + (mi * 16 + (lane & 15)) * rs + k0 + (lane >> 4) * 16));
+      }
+#pragma unroll
+      for (int gi = 0; gi < 2; ++gi) {
+        // matrix j is x rows k0 + 8j .. + 7 (lane l addresses row k0 + l) over
+        // 16 pixels; lane (g, t) gets rows 2t, 2t+1 of matrix j at pixels 2g,
+        // 2g+1.  Bytes 0 and 2 of r[0], r[1] are 4 K-bytes of pixel 2g,
+        // bytes 1 and 3 those of pixel 2g+1.
+        uint32_t r[4];
+        yq::ldmatrix_x4_trans(r, yq::smem_addr(xt + (k0 + lane) * kBRow + gi * 16));
+        const uint32_t even0 = __byte_perm(r[0], r[1], 0x6420), odd0 = __byte_perm(r[0], r[1], 0x7531);
+        const uint32_t even1 = __byte_perm(r[2], r[3], 0x6420), odd1 = __byte_perm(r[2], r[3], 0x7531);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          yq::mma_s8(acc[mi][2 * gi], af[mi], even0, even1);
+          yq::mma_s8(acc[mi][2 * gi + 1], af[mi], odd0, odd1);
+        }
+      }
+    }
+    // narrow modulo 256, as XLA's int32 -> int8 convert does.  Column c of
+    // the even tile is pixel 2c of its group, of the odd tile pixel 2c + 1,
+    // so columns 2t, 2t+1 of both are pixels 4t .. 4t+3: one word per row.
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int gi = 0; gi < 2; ++gi) {
+          *reinterpret_cast<uint32_t*>(os + (mi * 16 + g + 8 * hh) * kBRow + warp * 32 + gi * 16 + 4 * tq) =
+              (uint32_t)(uint8_t)acc[mi][2 * gi][2 * hh] | (uint32_t)(uint8_t)acc[mi][2 * gi + 1][2 * hh] << 8 |
+              (uint32_t)(uint8_t)acc[mi][2 * gi][2 * hh + 1] << 16 |
+              (uint32_t)(uint8_t)acc[mi][2 * gi + 1][2 * hh + 1] << 24;
+        }
+    __syncwarp();
+    const long long p0 = (long long)(blockIdx.x + i * gridDim.x) * kBTile + warp * 32;
+    for (int idx = lane; idx < 2 * O; idx += 32) {  // O rows x 32 bytes, 16 at a time
+      const int row = idx >> 1, half = idx & 1;
+      if (p0 + half * 16 < p_cols) {
+        *reinterpret_cast<uint4*>(out + (long long)row * p_cols + p0 + half * 16) =
+            *reinterpret_cast<const uint4*>(os + row * kBRow + warp * 32 + half * 16);
+      }
+    }
+    __syncwarp();  // the staging rows are read before the next tile writes them
+  }
+}
+
+// Launch facts of one persistent kernel, per device: the SM count (0 until
+// read) and how many blocks an SM holds at each depth (0 until asked).
+struct LaunchFacts {
+  int sms[yq::kMaxDevices];
+  int per_sm[yq::kMaxDevices][kMaxKW * 4 / 32 + 1];
+};
+
+// The persistent grid: once per device, outside any graph capture, the SM
+// count and the shared-memory attribute (at the largest depth); once per
+// depth, the blocks of this size an SM holds.  That many blocks per SM, or
+// fewer where there are fewer tiles.
+template <typename Kernel>
+cudaError_t persistent_grid(LaunchFacts& f, Kernel kernel, int threads, int max_smem, int k,
+                            int smem, int tiles, int& grid) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
+  if (err != cudaSuccess) return err;
+  if (dev >= yq::kMaxDevices) return cudaErrorInvalidDevice;
+  if (f.sms[dev] == 0) {
     int count = 0;
     err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 a_smem_bytes(kMaxKW * 4, NT));
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
     }
-    if (err != cudaSuccess) return (int)err;
-    sms[dev] = count;
+    if (err != cudaSuccess) return err;
+    f.sms[dev] = count;
   }
-  int& blocks = per_sm[dev][k / 32];
+  int& blocks = f.per_sm[dev][k / 32];
   if (blocks == 0) {
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kAThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (blocks < 1) return cudaErrorInvalidConfiguration;
   }
-  const int tiles = (p + kATile - 1) / kATile;
-  const int grid = tiles < sms[dev] * blocks ? tiles : sms[dev] * blocks;
-  kernel<<<grid, kAThreads, smem, stream>>>(x, w, out, p, k, tiles);
+  grid = tiles < f.sms[dev] * blocks ? tiles : f.sms[dev] * blocks;
+  return cudaSuccess;
+}
+
+template <int NT>
+int launch_a(const int8_t* x, const int8_t* w, uint8_t* out, int p, int k, cudaStream_t stream) {
+  static LaunchFacts facts;  // one per instantiation
+  const int smem = a_smem_bytes(k, NT), tiles = (p + kATile - 1) / kATile;
+  int grid = 0;
+  const cudaError_t err = persistent_grid(facts, orientation_a_kernel<NT>, kAThreads,
+                                          a_smem_bytes(kMaxKW * 4, NT), k, smem, tiles, grid);
+  if (err != cudaSuccess) return (int)err;
+  orientation_a_kernel<NT><<<grid, kAThreads, smem, stream>>>(x, w, out, p, k, tiles);
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kThreads)
-orientation_b_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ x,
-                     uint8_t* __restrict__ out, int p_cols, int k, int o) {
-  __shared__ int ws[kOT][kMaxKW + 1];
-  const int kw = k / 4;
-  const int o0 = blockIdx.y * kOT;
-  for (int idx = threadIdx.x; idx < kOT * kw; idx += kThreads) {
-    const int ol = idx / kw, q = idx - ol * kw;
-    ws[ol][q] = reinterpret_cast<const int*>(w + (size_t)(o0 + ol) * k)[q];
-  }
-  __syncthreads();
-  const size_t p0 = 4 * ((size_t)blockIdx.x * kThreads + threadIdx.x);
-  if (p0 >= (size_t)p_cols) return;
-  int acc[kOT][4];
-#pragma unroll
-  for (int j = 0; j < kOT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-  for (int q = 0; q < kw; ++q) {
-    // rows k = 4q .. 4q+3, pixels p0 .. p0+3: transpose the 4x4 byte block
-    const uint32_t r0 = __ldg(reinterpret_cast<const unsigned*>(x + (size_t)(4 * q) * p_cols + p0));
-    const uint32_t r1 = __ldg(reinterpret_cast<const unsigned*>(x + (size_t)(4 * q + 1) * p_cols + p0));
-    const uint32_t r2 = __ldg(reinterpret_cast<const unsigned*>(x + (size_t)(4 * q + 2) * p_cols + p0));
-    const uint32_t r3 = __ldg(reinterpret_cast<const unsigned*>(x + (size_t)(4 * q + 3) * p_cols + p0));
-    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140), lo23 = __byte_perm(r2, r3, 0x5140);
-    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362), hi23 = __byte_perm(r2, r3, 0x7362);
-    const int t[4] = {
-        (int)__byte_perm(lo01, lo23, 0x5410), (int)__byte_perm(lo01, lo23, 0x7632),
-        (int)__byte_perm(hi01, hi23, 0x5410), (int)__byte_perm(hi01, hi23, 0x7632)};
-#pragma unroll
-    for (int j = 0; j < kOT; ++j) {
-      const int b = ws[j][q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = __dp4a(t[i], b, acc[j][i]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kOT; ++j) {
-    uint32_t v = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v |= (uint32_t)(uint8_t)acc[j][i] << (8 * i);
-    *reinterpret_cast<uint32_t*>(out + (size_t)(o0 + j) * p_cols + p0) = v;
-  }
+template <int MI>
+int launch_b(const int8_t* w, const int8_t* x, uint8_t* out, int p, int k, cudaStream_t stream) {
+  static LaunchFacts facts;  // one per instantiation
+  const int smem = b_smem_bytes(k, MI), tiles = (p + kBTile - 1) / kBTile;
+  int grid = 0;
+  const cudaError_t err = persistent_grid(facts, orientation_b_kernel<MI>, kBThreads,
+                                          b_smem_bytes(kMaxKW * 4, MI), k, smem, tiles, grid);
+  if (err != cudaSuccess) return (int)err;
+  orientation_b_kernel<MI><<<grid, kBThreads, smem, stream>>>(w, x, out, p, k, tiles);
+  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int p, int k, int o) {
-  return p < 1 || k < 4 || k % 4 || k / 4 > kMaxKW || o < kOT || o % kOT;
+  return p < 1 || k < 32 || k % 32 || k / 4 > kMaxKW || o < 16 || o % 16 || o > kAMaxO;
 }
 
 }  // namespace
@@ -226,9 +327,7 @@ bool bad_shape(int p, int k, int o) {
 // Plain C entries for ctypes; each returns the launch's cudaError_t.
 extern "C" int yq_orientation_a(const void* x, const void* w, void* out, int p, int k, int o,
                                 void* stream) {
-  if (p < 1 || k < 32 || k % 32 || k / 4 > kMaxKW || o < 16 || o % 16 || o > kAMaxO) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(p, k, o)) return (int)cudaErrorInvalidValue;
   const auto xa = static_cast<const int8_t*>(x);
   const auto wa = static_cast<const int8_t*>(w);
   const auto oa = static_cast<uint8_t*>(out);
@@ -243,10 +342,15 @@ extern "C" int yq_orientation_a(const void* x, const void* w, void* out, int p, 
 
 extern "C" int yq_orientation_b(const void* w, const void* x, void* out, int p, int k, int o,
                                 void* stream) {
-  if (bad_shape(p, k, o) || p % 4) return (int)cudaErrorInvalidValue;
-  const dim3 grid((p / 4 + kThreads - 1) / kThreads, o / kOT);
-  orientation_b_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(w), static_cast<const int8_t*>(x),
-      static_cast<uint8_t*>(out), p, k, o);
-  return (int)cudaGetLastError();
+  if (bad_shape(p, k, o) || p % 16) return (int)cudaErrorInvalidValue;
+  const auto wa = static_cast<const int8_t*>(w);
+  const auto xa = static_cast<const int8_t*>(x);
+  const auto oa = static_cast<uint8_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (o / 16) {
+    case 1: return launch_b<1>(wa, xa, oa, p, k, s);
+    case 2: return launch_b<2>(wa, xa, oa, p, k, s);
+    case 3: return launch_b<3>(wa, xa, oa, p, k, s);
+    default: return launch_b<4>(wa, xa, oa, p, k, s);
+  }
 }

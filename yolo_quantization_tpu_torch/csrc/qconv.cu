@@ -81,7 +81,6 @@ constexpr int kMaxK = 3;
 constexpr int kBK = 64;              // K bytes per stage: two m16n8k32 steps
 constexpr int kRowBytes = kBK + 16;  // shared row stride; +16 spreads ldmatrix rows over banks
 constexpr int kStages = 4;
-constexpr int kMaxDevices = 64;      // per-device launch facts below
 constexpr int kFar = INT_MIN / 4;    // a row past the end: every tap lies outside the map
 constexpr int kVec = 0, kStem = 1, kByte = 2;  // A loaders
 
@@ -407,27 +406,13 @@ __global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
   }
 }
 
-// The current device and its SM count, read once per device.
-cudaError_t device_sms(int& dev, int& sms) {
-  static int count[kMaxDevices] = {0};
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  sms = count[dev];
-  return cudaSuccess;
-}
-
 template <int BM, int BN, int WM, int WN, bool ASYM, int MODE = kVec>
 cudaError_t launch_mma(const Params& p, int dev, cudaStream_t stream) {
   constexpr int kMaxSmem = kStages * (BM + BN) * kRowBytes;
   const auto kernel = qconv_mma_kernel<BM, BN, WM, WN, ASYM, MODE>;
   // the attribute holds for the current device only; a benign race: every
   // caller sets the same value
-  static bool smem_set[kMaxDevices] = {false};
+  static bool smem_set[yq::kMaxDevices] = {false};
   if (!smem_set[dev]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -445,7 +430,7 @@ cudaError_t launch_mma(const Params& p, int dev, cudaStream_t stream) {
 template <bool ASYM>
 cudaError_t launch_tile(const Params& p, cudaStream_t s) {
   int dev = 0, sms = 0;
-  const cudaError_t err = device_sms(dev, sms);
+  const cudaError_t err = yq::device_sms(dev, sms);
   if (err != cudaSuccess) return err;
   const auto blocks = [&](int bm, int bn) {
     return (long long)((p.rows + bm - 1) / bm) * ((p.co + bn - 1) / bn);
@@ -475,6 +460,24 @@ cudaError_t launch_tile(const Params& p, cudaStream_t s) {
 constexpr int kI16Threads = 256;
 constexpr int kChunkWords = 16;  // shared-memory words (int16 pairs) per position and stage
 
+// One 32-bit shared word of the int16 carrier: 2 int16 lanes.
+struct I16Word {
+  static constexpr int kLanes = 2;
+
+  // a lane's code placed in its slot of the word
+  __device__ static __forceinline__ uint32_t lane(int8_t code, int b) {
+    return (uint32_t)(uint16_t)(int16_t)code << (16 * b);
+  }
+
+  // acc + the word dot product: s16 x s16 -> s32 multiply-adds
+  __device__ static __forceinline__ int mac(int a, int b, int acc) {
+    return acc + (int)(int16_t)a * (int)(int16_t)b + (a >> 16) * (b >> 16);
+  }
+
+  // acc + the sum of the word's lanes (the patchsum of asymmetric weights)
+  __device__ static __forceinline__ int lane_sum(int a, int acc) { return acc + (int)(int16_t)a + (a >> 16); }
+};
+
 // CG threads share one 2x2 window, each with 4 channels: TC = 4*CG output
 // channels per block, 256/CG windows arranged WY x WX.
 template <int CG>
@@ -496,7 +499,7 @@ struct I16Tile {
 template <int CG, bool ASYM>
 __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) {
   using T = I16Tile<CG>;
-  using Wd = yq::Word<true>;
+  using Wd = I16Word;
   constexpr int L = Wd::kLanes;  // channels per shared word
   __shared__ int xs[T::IN_WORDS];
   __shared__ int ws[T::W_WORDS];

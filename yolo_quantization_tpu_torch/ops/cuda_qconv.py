@@ -80,6 +80,13 @@ def check_tensor(name, t: torch.Tensor, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def check_aligned(*named: tuple[str, torch.Tensor]) -> None:
+    """The int8 kernels read their operands with 16-byte copies."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must start on a 16-byte boundary")
+
+
 def per_image_zp(x_zp_i32, n: int):
     """The input zero point as an int, or as an (n,) int32 tensor when it
     is one per image (``dynamic_input``)."""
@@ -189,9 +196,7 @@ def quantized_conv2d_cuda(
     per_image = check_bias_m(bias_i32, m, n, co, dev)
     if w_zp is not None:
         check_tensor("w_zp", w_zp, torch.int32, (co,), dev)
-    for name, t in (("x", x), ("w_packed", w_packed)):
-        if t.data_ptr() % 16:  # the kernel reads both with 16-byte copies
-            raise ValueError(f"{name}: data must start on a 16-byte boundary")
+    check_aligned(("x", x), ("w_packed", w_packed))
     zp_ptr, zp_static = zero_point_args(x_zp, n, dev)
     oh, ow = (h_out // 2, w_out // 2) if fuse_pool else (h_out, w_out)
     out = torch.empty((n, oh, ow, co), dtype=torch.int8 if out_i8 else torch.uint8, device=dev)

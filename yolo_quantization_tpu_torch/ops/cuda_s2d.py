@@ -6,7 +6,9 @@ of ``infer/convert.py::_s2d_weights``, the max over the 4 output-phase
 groups on the int32 accumulators, then the requant epilogue — the stem's
 conv + 2x2/s2 maxpool in one pass.  The kernel reads the NHWC input
 directly, applying the space-to-depth index map and the zero-point padding
-as it loads.
+as it loads.  It is an implicit GEMM on the int8 tensor cores whose B
+operand ``pack_weights`` lays out with an output channel's four phase
+columns side by side, so the phase max is taken in registers.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/qconv.py::s2d_conv_phase_max`` over ``space_to_depth(x)``); on a
@@ -20,10 +22,12 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from yolo_quantization_tpu_torch.ops import _build
 from yolo_quantization_tpu_torch.ops.cuda_qconv import (
     ACTS,
+    check_aligned,
     check_bias_m,
     check_tensor,
     per_image_zp,
@@ -55,10 +59,23 @@ def build() -> None:
 
 
 def pack_weights(w_s2d: torch.Tensor) -> torch.Tensor:
-    """(3,3,4C,4O) block kernel -> the kernel's (4 phases, O, 3, 3, 4C)
-    layout: per (phase, channel, tap), int32 words of 4 slots."""
+    """(3,3,4C,4O) block kernel -> the kernel's B operand, (N_pad, K_pad)
+    int8, K contiguous in w_s2d's flatten order (tap-major, slot-minor) and
+    zero-padded to a multiple of 32.  Output slot ph*O + o goes to column
+    16*(o//4) + 8*(ph//2) + 2*(o%4) + ph%2: in the m16n8 accumulator a
+    thread holds columns 2t and 2t+1 of each n8 tile, so the two n8 tiles
+    of a 16-column group hold phases 0..3 of channel 4*group + t in one
+    thread.  O is zero-padded to a multiple of 4 (N_pad = 4*O_pad)."""
     kh, kw, c4, o4 = w_s2d.shape
-    return w_s2d.reshape(kh, kw, c4, 4, o4 // 4).permute(3, 4, 0, 1, 2).contiguous()
+    depth, o = kh * kw * c4, o4 // 4
+    w = F.pad(w_s2d.reshape(depth, 4, o), (0, -o % 4))            # [k][ph][o]
+    w = w.reshape(depth, 2, 2, -1, 4).permute(3, 1, 4, 2, 0)       # [o/4][ph/2][o%4][ph%2][k]
+    return F.pad(w.reshape(-1, depth), (0, -depth % 32)).contiguous()
+
+
+def packed_shape(c: int, o: int) -> tuple[int, int]:
+    """(N_pad, K_pad) of ``pack_weights`` for C input and O output channels."""
+    return -(-o // 4) * 16, -(-(36 * c) // 32) * 32
 
 
 def s2d_conv_phase_max_cuda(
@@ -112,8 +129,9 @@ def s2d_conv_phase_max_cuda(
     if w_packed is None:
         w_packed = pack_weights(w_s2d)
     check_tensor("x", x, torch.int8, (n, h, w, c), dev)
-    check_tensor("w_packed", w_packed, torch.int8, (4, o, 3, 3, 4 * c), dev)
+    check_tensor("w_packed", w_packed, torch.int8, packed_shape(c, o), dev)
     per_image = check_bias_m(bias_i32, m, n, o, dev)
+    check_aligned(("x", x), ("w_packed", w_packed))
     zp_ptr, zp_static = zero_point_args(x_zp, n, dev)
     out = torch.empty((n, h // 2, w // 2, o), dtype=torch.int8, device=dev)
 

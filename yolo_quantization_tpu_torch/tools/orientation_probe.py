@@ -7,8 +7,8 @@ The counterpart of ``scripts/mxu_orientation_probe.py``.  The stem conv
   B. pixels along a row: (O, K) x (K, P)  weights-stationary
 
 and the s2d form is A or B with (P/4, 4K) x (4K, 4O).  The kernels
-(``csrc/gemm_probe.cu``; A on the int8 tensor cores, B on ``__dp4a``)
-compute the products with int32 accumulation and narrow to int8 with the
+(``csrc/gemm_probe.cu``, both on the int8 tensor cores; B transposes x's
+bytes on the way from shared memory to the tensor cores) compute the products with int32 accumulation and narrow to int8 with the
 wrap of XLA's convert (int32 128 -> int8 -128), so the probe moves the
 bytes a real layer would.  The cases are the script's four, on seeded
 random int8 inputs (on all-ones inputs K = 128 gives 128, which wraps to
@@ -71,24 +71,24 @@ def plain_matmul_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _check_shapes(p: int, k: int, o: int, orientation: str):
-    if orientation == "a":
-        ok = k % 32 == 0 and 32 <= k <= 256 and o % 16 == 0 and 16 <= o <= 64 and p >= 1
-        rule = "A: K % 32 == 0 (<= 256), O % 16 == 0 (<= 64)"
+    ok = k % 32 == 0 and 32 <= k <= 256 and o % 16 == 0 and 16 <= o <= 64 and p >= 1
+    rule = "K % 32 == 0 (<= 256), O % 16 == 0 (<= 64)"
+    if orientation == "b":  # x's rows and the output's are read and written 16 bytes at a time
+        ok = ok and p % 16 == 0
+        rule = "B: " + rule + ", P % 16 == 0"
     else:
-        ok = k % 4 == 0 and 4 <= k <= 256 and o % 16 == 0 and o >= 16 and p >= 1 and p % 4 == 0
-        rule = "B: K % 4 == 0 (<= 256), O % 16 == 0, P % 4 == 0"
+        rule = "A: " + rule
     if not ok:
         raise ValueError(f"probe kernel shapes: {rule}; got P={p} K={k} O={o}")
 
 
 def _launch(name: str, first: torch.Tensor, second: torch.Tensor, out: torch.Tensor,
             p: int, k: int, o: int) -> torch.Tensor:
-    align = 16 if name == "orientation_a" else 4  # A copies 16 bytes at a time, B reads words
     for label, t in (("first", first), ("second", second)):
         if t.dtype != torch.int8 or not t.is_contiguous() or t.device != out.device:
             raise ValueError(f"{name} {label} operand: expected contiguous int8 on {out.device}")
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} {label} operand: data must start on a {align}-byte boundary")
+        if t.data_ptr() % 16:  # the kernels copy 16 bytes at a time
+            raise ValueError(f"{name} {label} operand: data must start on a 16-byte boundary")
     lib = _library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -142,7 +142,7 @@ def run_cases(device, scale: int = 1, seed: int = 0):
     """Run the four cases once at 1/``scale`` of their rows; yields
     (name, orientation, K, O, P, args, out)."""
     for i, (name, orientation, k, o, p) in enumerate(CASES):
-        p = p // scale // 4 * 4
+        p = p // scale // 16 * 16  # B's kernel takes P % 16 == 0
         args = case_inputs(orientation, k, o, p, seed + i, device)
         fn = orientation_a if orientation == "a" else orientation_b
         yield name, orientation, k, o, p, args, fn(*args)

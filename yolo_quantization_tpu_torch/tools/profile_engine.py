@@ -27,7 +27,7 @@ from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity
 
 ITERS = 5
 # the hand-written kernels by the names of their __global__ functions
-KERNELS = {"K1 qconv": ("qconv_mma_kernel", "qconv_i16_kernel"), "K2 s2d_qconv": ("s2d_kernel",)}
+KERNELS = {"K1 qconv": ("qconv_mma_kernel", "qconv_i16_kernel"), "K2 s2d_qconv": ("s2d_mma_kernel",)}
 
 
 def configurations():
