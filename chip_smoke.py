@@ -6,9 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. card identity (nvidia-smi name and power limit, torch device name);
-  2. build the three kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
-     gemm_probe.cu), one nvcc each, all started together; print each
-     kernel's ptxas registers, spills and static shared memory, and its
+  2. build the four kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
+     gemm_probe.cu, shortcut.cu), one nvcc each, all started together; print
+     each kernel's ptxas registers, spills and static shared memory, and its
      IMMA (int8 tensor-core) and IDP (__dp4a) instructions from cuobjdump's
      SASS; K1's int8 instantiations, every K2 instantiation and both probe
      kernels must hold IMMA, and K1's symmetric ones, K2's and
@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      layers take the 128x128 tile) plain, asymmetric and with the parity
      engine's options; fused pool where the plan has it; plus edge cases
      (Co 30/130, Cin 3/6/16, M off every tile, pooled partial tiles, every
-     block tile of the launch table, K=1, every activation, ties, uint8 in);
+     block tile of the launch table, K=1, every activation, ties, uint8 in).
+     Then stride 2: yolov3's five stride-2 convs at batch 2 and 16 and with
+     each option, odd maps (13 -> 7, 9x11), Cin 3 and 6, every block tile;
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
      batch 2, every activation, per-image zp/bias/m, exact_leaky, and at
      batch 16 (the timed shapes) plain and with the per-image options;
@@ -30,22 +32,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      sizes, each kernel vs its plain version bit for bit — the probe's main
      path, whose launches are counted; then orientation_b on a P that is not
      a multiple of its 128-pixel tile;
+  5b. the integer shortcut kernel vs its plain version, bit for bit: all
+     65,536 code pairs under seeded grids for each activation, one shortcut
+     of each yolov3 stage at batch 16, lengths off the 16-code vector, and
+     an unaligned view (ValueError);
   6. engines on the GPU vs on the CPU, every layer's codes equal, float32 and
      uint8 batches of 4: the flagship (13 K1 launches per forward), the
      flagship with use_s2d (3 K2 + 10 K1), the C-parity configuration (leaky,
      asymmetric, dynamic_input, exact_leaky; 13 K1; also a float32 batch of
      16, whose large layers take the 128x128 tile) and the int16 carrier
-     (codes equal to the int8 engine's); each engine's predict is a main path
-     with counted launches;
-  7. flip TTA and at_size(320) agree between GPU and CPU, and f1_rows over
-     GPU and CPU predictions gives equal counts;
-  8. a Server with the (1, 4, 16) bucket ladder answers seeded requests of
-     mixed sizes, float and uint8 — the serving main path;
+     (codes equal to the int8 engine's); then full yolov3 (80 classes, 416)
+     on batches of 2, all 107 layers: "v3" (synthetic ranges) and
+     "v3-perturbed" (ranges off the synthetic rationals, asymmetric
+     weights, dynamic_input, exact_leaky), 75 K1 + 23 shortcut launches per
+     forward; each engine's predict is a main path with counted launches;
+  7. flip TTA and at_size(320) agree between GPU and CPU for yolov3-tiny and
+     yolov3, and f1_rows over GPU and CPU predictions gives equal counts;
+  8. Servers with the (1, 4, 16) bucket ladder answer seeded requests of
+     mixed sizes, float and uint8 — the serving main paths: yolov3-tiny (13
+     K1 launches per batch) and yolov3 (75 K1 + 23 shortcut per batch);
   9. timings, printed and not asserted
      (yolo_quantization_tpu_torch/tools/kernel_timings.py, which also runs
      alone): each kernel graph-timed (its device time) beside its eager
-     time, the plain version and torch._int_mm; the engines' device
-     forwards.
+     time, its bound, the plain version and torch._int_mm; K1 on yolov3's
+     stride-2 convs; the shortcut kernel per yolov3 stage; the engines'
+     device forwards.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -169,7 +180,7 @@ def phase_kernel_report(libs) -> None:
             log(f"    {name}: {readable[fn]}: {regs} registers, spill stores/loads "
                 f"{info.get('spill', '?')} B, static smem {info.get('smem', '?')} B, "
                 f"IMMA {counts['IMMA']}, IDP {counts['IDP']}")
-            if (name != "qconv" or "qconv_mma" in fn) and counts["IMMA"] == 0:
+            if (name in ("s2d_qconv", "gemm_probe") or "qconv_mma" in fn) and counts["IMMA"] == 0:
                 raise AssertionError(f"{readable[fn]}: no IMMA instruction")
             if (name == "s2d_qconv" or "orientation_b" in fn) and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a product runs on __dp4a")
@@ -195,7 +206,7 @@ class Errors:
 
 
 def conv_cases():
-    """(name, n, h, w, ci, co, k, pad, act, out_i8, fuse_pool, variant).
+    """(name, n, h, w, ci, co, k, pad, act, out_i8, fuse_pool, variant, stride).
 
     Variants: "" plain symmetric; "asym" weight zero points; "dyn" per-image
     zero points and (N,Co) bias/m; "exact" double-rounded leaky; "int16" the
@@ -244,14 +255,57 @@ def conv_cases():
         for variant in ("", "asym"):
             cases.append((f"edge{j}_{variant or 'sym'}", n, h, w, ci, co, k, pad, ACT_LEAKY, True,
                           pool, variant))
-    return cases
+    return [case + (1,) for case in cases] + stride2_cases()
+
+
+# K1 at stride 2 (n, h, w, ci, co, k, pad) by loader and by the block tile
+# the launch table gives them on a 132-SM card (as
+# tests/test_torch_qconv.py::STRIDE2_EDGES): the byte gather (Ci 3, 6, 8),
+# 16-byte copies through L1 (Ci <= 32) and not, each N tile, M off the tile,
+# odd maps, 1x1 at stride 2
+STRIDE2_EDGES = (
+    (2, 13, 13, 3, 30, 3, 1), (3, 9, 11, 6, 130, 3, 1), (1, 20, 20, 8, 16, 3, 1),
+    (2, 26, 26, 16, 16, 3, 1), (1, 13, 13, 16, 30, 3, 1), (8, 50, 60, 32, 30, 3, 1),
+    (2, 13, 13, 32, 64, 3, 1), (9, 40, 40, 32, 64, 3, 1), (1, 13, 13, 64, 130, 3, 1),
+    (16, 26, 26, 128, 256, 3, 1), (2, 9, 11, 64, 40, 1, 0),
+)
+
+
+def stride2_cases():
+    """K1's stride-2 cases, in conv_cases' form: yolov3's five stride-2 convs
+    at batch 2 (plain and each option) and 16 (plain, asymmetric), odd maps,
+    Cin 3 and 6, and every block tile."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_LINEAR, ACT_RELU6
+    from yolo_quantization_tpu_torch.tools.kernel_timings import v3_stride2_layers
+
+    cases = []
+    for (i, h, w, ci, co, k, pad) in v3_stride2_layers():
+        for n, variant in ((2, ""), (16, ""), (16, "asym"), (2, "asym"), (2, "dyn"), (2, "exact"),
+                           (2, "int16")):
+            name = f"v3_layer{i}_s2_b{n}{'_' + variant if variant else ''}"
+            cases.append((name, n, h, w, ci, co, k, pad, ACT_LEAKY, True, False, variant))
+    cases += [
+        ("s2_odd13", 2, 13, 13, 64, 96, 3, 1, ACT_LEAKY, True, False, ""),
+        ("s2_odd13_all", 2, 13, 13, 64, 96, 3, 1, ACT_LEAKY, True, False, "all"),
+        ("s2_odd_9x11", 3, 9, 11, 32, 40, 3, 1, ACT_RELU6, False, False, ""),
+        ("s2_odd_9x11_all", 3, 9, 11, 32, 40, 3, 1, ACT_LEAKY, True, False, "all"),
+        ("s2_cin3", 2, 30, 22, 3, 32, 3, 1, ACT_LINEAR, True, False, ""),
+        ("s2_cin3_asym", 2, 30, 22, 3, 32, 3, 1, ACT_LEAKY, True, False, "asym"),
+        ("s2_cin6", 3, 17, 21, 6, 40, 3, 1, ACT_RELU6, False, False, ""),
+        ("s2_cin6_all", 3, 17, 21, 6, 40, 3, 1, ACT_LEAKY, True, False, "all"),
+    ]
+    for j, (n, h, w, ci, co, k, pad) in enumerate(STRIDE2_EDGES):
+        for variant in ("", "asym"):
+            cases.append((f"s2_edge{j}_{variant or 'sym'}", n, h, w, ci, co, k, pad, ACT_LEAKY, True,
+                          False, variant))
+    return [case + (2,) for case in cases]
 
 
 def phase_k1(cuda_qconv, qconv, rng, errors):
     from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
     cases = conv_cases()
-    for (name, n, h, w, ci, co, k, pad, act, out_i8, pool, variant) in cases:
+    for (name, n, h, w, ci, co, k, pad, act, out_i8, pool, variant, stride) in cases:
         x, wt, bias, m = random_layer(rng, n, h, w, ci, co, k)
         dyn = variant in ("dyn", "all", "all_pow2_m", "parity")
         if "pow2_m" in variant:
@@ -279,17 +333,17 @@ def phase_k1(cuda_qconv, qconv, rng, errors):
             ref = qconv.quantized_conv2d_pool(xt, wt_t, b_t, m_t, zp_t, out_zp, pad=pad, act=act,
                                               out_i8=out_i8, w_zp_i32=wzp_t, **opts)
         else:
-            ref = qconv.quantized_conv2d(xt, wt_t, b_t, m_t, zp_t, wzp_t, out_zp, stride=1,
+            ref = qconv.quantized_conv2d(xt, wt_t, b_t, m_t, zp_t, wzp_t, out_zp, stride=stride,
                                          pad=pad, act=act, symmetric=w_zp is None,
                                          out_i8=out_i8, **opts)
         got = cuda_qconv.quantized_conv2d_cuda(
-            xt, wt_t, b_t, m_t, zp_t, stride=1, pad=pad, act=act, out_zp_static=out_zp,
+            xt, wt_t, b_t, m_t, zp_t, stride=stride, pad=pad, act=act, out_zp_static=out_zp,
             fuse_pool=pool, out_i8=out_i8, w_zp=wzp_t, **opts,
         )
         errors.check("qconv", name, got, ref)
-        log(f"  {name:24s} x{(n, h, w, ci)} w{(k, k, ci, co)} act={act} out_i8={out_i8} "
+        log(f"  {name:24s} x{(n, h, w, ci)} w{(k, k, ci, co)} s{stride} act={act} out_i8={out_i8} "
             f"pool={pool} {variant or 'plain'}: equal")
-    return len(cases)
+    return sum(c[-1] == 1 for c in cases), sum(c[-1] == 2 for c in cases)
 
 
 # K2's tile edges (n, h, w, c, o), by the block tile its launch table gives
@@ -379,41 +433,92 @@ def phase_probe(probe, errors):
     return results, launches
 
 
+def phase_shortcut(cuda_shortcut, shortcut, rng, errors):
+    """The shortcut kernel against its plain version on the card."""
+    from yolo_quantization_tpu_torch.tools.kernel_timings import v3_shortcut_shapes
+
+    codes = torch.arange(-128, 128, dtype=torch.int8)
+    pair_x = codes.repeat_interleave(256).cuda()  # every (x, skip) pair of codes: 65,536
+    pair_k = codes.repeat(256).cuda()
+
+    def grid(seed, activation):
+        g = np.random.default_rng(seed)
+        return shortcut.shortcut_params((float(g.uniform(0.005, 0.05)), int(g.integers(0, 256))),
+                                        (float(g.uniform(0.005, 0.05)), int(g.integers(0, 256))),
+                                        float(g.uniform(0.01, 0.06)), int(g.integers(0, 256)), activation)
+
+    cases = 0
+    for activation in ("linear", "leaky", "relu", "relu6"):
+        for seed in range(4):
+            k = grid(seed, activation)
+            errors.check("shortcut", f"pairs_{activation}_{seed}", cuda_shortcut.int_shortcut_cuda(pair_x, pair_k, k),
+                         shortcut.int_shortcut(pair_x, pair_k, k))
+            cases += 1
+        log(f"  all 65,536 code pairs, {activation}, 4 seeded grids: equal")
+    shapes = [(16, h, w, c) for (_, h, w, c) in v3_shortcut_shapes()] + [(1, 1, 3, 5), (3, 7, 11, 13)]
+    for j, shape in enumerate(shapes):
+        x = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).cuda()
+        skip = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).cuda()
+        k = grid(100 + j, ("linear", "leaky")[j % 2])
+        errors.check("shortcut", f"shape{shape}", cuda_shortcut.int_shortcut_cuda(x, skip, k),
+                     shortcut.int_shortcut(x, skip, k))
+        cases += 1
+        log(f"  {shape} ({x.numel()} codes, {x.numel() % 16} in the scalar tail): equal")
+    flat = torch.zeros(4096 + 16, dtype=torch.int8, device="cuda")
+    try:
+        cuda_shortcut.int_shortcut_cuda(flat[1:4097], flat[16:4112], grid(0, "linear"))
+    except ValueError as e:
+        log(f"  an unaligned view raises ValueError: {e}")
+    else:
+        raise AssertionError("the shortcut wrapper took an operand off a 16-byte boundary")
+    return cases
+
+
 def engine_configs():
+    """name -> (program, options, launches per forward (K1, K2, shortcut)):
+    yolov3-tiny's configurations, then yolov3's (``v3``, ``v3-perturbed``)
+    as ``tools/profile_engine.py`` builds them."""
     from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
+    from yolo_quantization_tpu_torch.tools.profile_engine import configurations
 
     flagship = flagship_program(classes=5, size=416, seed=0)
     return {
-        "flagship": (flagship, {}, (13, 0)),
-        "s2d": (flagship, dict(use_s2d=True), (10, 3)),
+        "flagship": (flagship, {}, (13, 0, 0)),
+        "s2d": (flagship, dict(use_s2d=True), (10, 3, 0)),
         "parity": (parity_program(classes=5, size=416, seed=0),
-                   dict(dynamic_input=True, exact_leaky=True), (13, 0)),
-        "int16": (flagship, dict(carrier="int16"), (13, 0)),
+                   dict(dynamic_input=True, exact_leaky=True), (13, 0, 0)),
+        "int16": (flagship, dict(carrier="int16"), (13, 0, 0)),
+        **{name: (program, option, (75, 0, 23))
+           for name, (program, option) in configurations(v3=True).items()},
     }
 
 
-def reset_counts(cuda_qconv, cuda_s2d):
-    cuda_qconv.launches = 0
-    cuda_s2d.launches = 0
+def reset_counts(*wrappers):
+    for w in wrappers:
+        w.launches = 0
 
 
-def phase_engines(Engine, cuda_qconv, cuda_s2d, rng):
+def phase_engines(Engine, counters, rng):
     x = rng.uniform(0, 1, (4, 416, 416, 3)).astype(np.float32)
     x_u8 = rng.integers(0, 256, (4, 416, 416, 3), dtype=np.uint8)
     # the parity engine at batch 16 too: its large layers take K1's 128x128 tile there
     x16 = rng.uniform(0, 1, (16, 416, 416, 3)).astype(np.float32)
     engines, main_launches, int8_outs = {}, {}, {}
-    for cname, (program, option, (k1, k2)) in engine_configs().items():
+    for cname, (program, option, expected) in engine_configs().items():
         eng_gpu = Engine(program, device="cuda", **option)
         eng_cpu = Engine(program, device="cpu", **option)
         engines[cname] = eng_gpu
-        batches = [("float32", x), ("uint8", x_u8)] + ([("float32", x16)] if cname == "parity" else [])
+        if cname.startswith("v3"):  # 33 GMAC an image: the CPU side runs batches of 2
+            batches = [("float32", x[:2]), ("uint8", x_u8[:2])]
+        else:
+            batches = [("float32", x), ("uint8", x_u8)] + ([("float32", x16)] if cname == "parity" else [])
         for name, batch in batches:
-            reset_counts(cuda_qconv, cuda_s2d)
+            reset_counts(*counters)
             heads_g, outs_g = eng_gpu.raw_heads(batch, return_outputs=True)
-            got = (cuda_qconv.launches, cuda_s2d.launches)
-            if got != (k1, k2):
-                raise AssertionError(f"{cname}: (K1, K2) launches per forward {got}, expected {(k1, k2)}")
+            got = tuple(c.launches for c in counters)
+            if got != expected:
+                raise AssertionError(f"{cname}: (K1, K2, shortcut) launches per forward {got}, "
+                                     f"expected {expected}")
             heads_c, outs_c = eng_cpu.raw_heads(batch, return_outputs=True)
             for i, (g, c) in enumerate(zip(outs_g, outs_c)):
                 if g.dtype != c.dtype or not np.array_equal(g, c):
@@ -429,40 +534,43 @@ def phase_engines(Engine, cuda_qconv, cuda_s2d, rng):
                         raise AssertionError(f"int16 carrier: layer {i} differs from the int8 engine")
             log(f"  {cname} {name} batch of {len(batch)}: all {len(outs_g)} layer outputs equal to the CPU "
                 f"engine{' and to the int8 engine' if cname == 'int16' else ''}; "
-                f"{k1} K1 + {k2} K2 launches")
+                f"{expected[0]} K1 + {expected[1]} K2 + {expected[2]} shortcut launches")
         # the engine's predict is this configuration's main path
-        reset_counts(cuda_qconv, cuda_s2d)
-        boxes, obj, cls = eng_gpu.predict(x)
-        main_launches[cname] = (cuda_qconv.launches, cuda_s2d.launches)
-        if main_launches[cname] != (k1, k2):
-            raise AssertionError(f"{cname} predict launched {main_launches[cname]}, expected {(k1, k2)}")
+        reset_counts(*counters)
+        boxes, obj, cls = eng_gpu.predict(batches[0][1])
+        main_launches[cname] = tuple(c.launches for c in counters)
+        if main_launches[cname] != expected:
+            raise AssertionError(f"{cname} predict launched {main_launches[cname]}, expected {expected}")
         if not (np.isfinite(boxes).all() and np.isfinite(cls).all()
                 and (obj >= 0).all() and (obj <= 1).all()):
             raise AssertionError(f"{cname} predict: non-finite boxes or objectness outside [0,1]")
         log(f"  {cname} predict: boxes {boxes.shape} finite, objectness in "
-            f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {k1}, K2 {k2}")
+            f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {expected[0]}, K2 {expected[1]}, "
+            f"shortcut {expected[2]}")
     return engines, main_launches
 
 
 def phase_flip_size_f1(Engine, engines, rng):
     from yolo_quantization_tpu_torch.eval.f1 import f1_rows
 
-    gpu = engines["flagship"]
-    cpu = Engine(gpu.program, device="cpu")
-    x = rng.uniform(0, 1, (2, 416, 416, 3)).astype(np.float32)
-    for a, b in zip(gpu.predict(x, flip=True), cpu.predict(x, flip=True)):
-        np.testing.assert_allclose(a, b, **DECODE_TOL)
-    log("  flip TTA: GPU predict(flip=True) agrees with the CPU engine")
-    g320, c320 = gpu.at_size(320), cpu.at_size(320)
-    if g320 is not gpu.at_size(320) or g320.arrays is not gpu.arrays:
-        raise AssertionError("at_size did not cache or share the device arrays")
-    x320 = rng.uniform(0, 1, (2, 320, 320, 3)).astype(np.float32)
-    for a, b in zip(g320.raw_heads(x320), c320.raw_heads(x320)):
-        if not np.array_equal(a, b):
-            raise AssertionError("at_size(320): heads differ between GPU and CPU")
-    for a, b in zip(g320.predict(x320), c320.predict(x320)):
-        np.testing.assert_allclose(a, b, **DECODE_TOL)
-    log("  at_size(320): heads bit-equal and detections agree between GPU and CPU")
+    for cname, n in (("flagship", 2), ("v3", 1)):
+        gpu = engines[cname]
+        cpu = Engine(gpu.program, device="cpu")
+        x = rng.uniform(0, 1, (n, 416, 416, 3)).astype(np.float32)
+        for a, b in zip(gpu.predict(x, flip=True), cpu.predict(x, flip=True)):
+            np.testing.assert_allclose(a, b, **DECODE_TOL)
+        log(f"  {cname} flip TTA: GPU predict(flip=True) agrees with the CPU engine")
+        g320, c320 = gpu.at_size(320), cpu.at_size(320)
+        if g320 is not gpu.at_size(320) or g320.arrays is not gpu.arrays:
+            raise AssertionError("at_size did not cache or share the device arrays")
+        x320 = rng.uniform(0, 1, (n, 320, 320, 3)).astype(np.float32)
+        for a, b in zip(g320.raw_heads(x320), c320.raw_heads(x320)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{cname} at_size(320): heads differ between GPU and CPU")
+        for a, b in zip(g320.predict(x320), c320.predict(x320)):
+            np.testing.assert_allclose(a, b, **DECODE_TOL)
+        log(f"  {cname} at_size(320): heads bit-equal and detections agree between GPU and CPU")
+    gpu, cpu = engines["flagship"], Engine(engines["flagship"].program, device="cpu")
     xs = rng.uniform(0, 1, (8, 416, 416, 3)).astype(np.float32)
     truths = []
     for _ in range(len(xs)):
@@ -482,9 +590,10 @@ def phase_flip_size_f1(Engine, engines, rng):
     log(f"  f1_rows over GPU and CPU predictions: equal counts (TP, TP_FP, TP_FN) {counts[0]}")
 
 
-def phase_serving(Server, Detection, cuda_qconv, cuda_s2d, engine, rng):
-    sizes = [(416, 416), (300, 500), (480, 640), (120, 90), (416, 416), (333, 222),
-             (600, 400), (64, 96), (250, 250), (720, 1280)]
+def phase_serving(Server, Detection, counters, engine, per_batch, rng, sizes):
+    """A Server over ``engine`` answers seeded requests of ``sizes``; each
+    batch must launch ``per_batch`` (K1, K2, shortcut) kernels.  Returns the
+    launches of the run."""
     images = []
     for i, (h, w) in enumerate(sizes):
         if i % 3 == 1:
@@ -493,12 +602,12 @@ def phase_serving(Server, Detection, cuda_qconv, cuda_s2d, engine, rng):
             images.append(rng.uniform(0, 1, (h, w, 3)).astype(np.float32))
     server = Server(engine, batch_size=(1, 4, 16))
     try:
-        reset_counts(cuda_qconv, cuda_s2d)  # count the main path's launches only
+        reset_counts(*counters)  # count the main path's launches only
         # a lone request (bucket 1), then a burst that batches together
         results = [server.submit(images[0], thresh=0.5, nms=0.45).result(timeout=300)]
         futures = [server.submit(im, thresh=0.5, nms=0.45) for im in images[1:]]
         results += [f.result(timeout=300) for f in futures]
-        launches = cuda_qconv.launches
+        launches = tuple(c.launches for c in counters)
     finally:
         server.close()
     for dets in results:
@@ -509,11 +618,13 @@ def phase_serving(Server, Detection, cuda_qconv, cuda_s2d, engine, rng):
                 raise AssertionError("non-finite box or objectness outside [0,1]")
     if server.stats["images"] != len(images):
         raise AssertionError(f"stats images {server.stats['images']} != {len(images)} submitted")
-    if launches == 0 or launches != 13 * server.stats["batches"]:
-        raise AssertionError(f"{launches} kernel launches for {server.stats['batches']} batches")
+    batches = server.stats["batches"]
+    if batches == 0 or launches != tuple(k * batches for k in per_batch):
+        raise AssertionError(f"(K1, K2, shortcut) launches {launches} for {batches} batches, "
+                             f"expected {per_batch} each")
     log(f"  {len(images)} requests ({sum(im.dtype == np.uint8 for im in images)} uint8) answered; "
-        f"{sum(len(r) for r in results)} detections; batches {server.stats['batches']}, "
-        f"buckets {server.stats['bucket_hist']}; kernel launches {launches}")
+        f"{sum(len(r) for r in results)} detections; batches {batches}, "
+        f"buckets {server.stats['bucket_hist']}; (K1, K2, shortcut) launches {launches}")
     return launches
 
 
@@ -525,7 +636,7 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from yolo_quantization_tpu_torch.infer.engine import Engine
     from yolo_quantization_tpu_torch.infer.serving import Detection, Server
-    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, qconv
+    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, cuda_shortcut, qconv, shortcut
     from yolo_quantization_tpu_torch.tools import kernel_timings as timings
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
@@ -542,11 +653,12 @@ def main(argv: list[str]) -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     log("phase 2: build")
-    libs = ("qconv", "s2d_qconv", "gemm_probe")
+    libs = _build.LIBRARIES
     t0 = time.perf_counter()
     _build.build_all(libs)
     cuda_qconv.build()
     cuda_s2d.build()
+    cuda_shortcut.build()
     probe.build()
     log(f"  {', '.join(f'csrc/{n}.cu' for n in libs)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -560,31 +672,42 @@ def main(argv: list[str]) -> int:
     rng = np.random.default_rng(0)
     errors = Errors()
     log("phase 3: K1 (qconv) vs plain version (bit for bit)")
-    log(f"  {phase_k1(cuda_qconv, qconv, rng, errors)} cases equal")
+    n1, n2 = phase_k1(cuda_qconv, qconv, rng, errors)
+    log(f"  {n1} stride-1 and {n2} stride-2 cases equal")
     log("phase 4: K2 (s2d_qconv) vs plain version (bit for bit)")
     log(f"  {phase_k2(cuda_s2d, qconv, rng, errors)} cases equal")
     log("phase 5: K3 (orientation probe) at the script's sizes vs plain version (bit for bit)")
     probe_results, probe_launches = phase_probe(probe, errors)
+    log("phase 5b: the integer shortcut vs plain version (bit for bit)")
+    log(f"  {phase_shortcut(cuda_shortcut, shortcut, rng, errors)} cases equal")
 
-    log("phase 6: engines (yolov3-tiny 416, 5 classes) GPU vs CPU")
-    engines, main_launches = phase_engines(Engine, cuda_qconv, cuda_s2d, rng)
+    counters = (cuda_qconv, cuda_s2d, cuda_shortcut)
+    log("phase 6: engines (yolov3-tiny 416, 5 classes; yolov3 416, 80 classes) GPU vs CPU")
+    engines, main_launches = phase_engines(Engine, counters, rng)
 
     log("phase 7: flip TTA, at_size(320), f1_rows")
     phase_flip_size_f1(Engine, engines, rng)
 
     log("phase 8: serving")
-    launches = phase_serving(Server, Detection, cuda_qconv, cuda_s2d, engines["flagship"], rng)
+    launches = phase_serving(Server, Detection, counters, engines["flagship"], (13, 0, 0), rng,
+                             [(416, 416), (300, 500), (480, 640), (120, 90), (416, 416), (333, 222),
+                              (600, 400), (64, 96), (250, 250), (720, 1280)])
+    phase_serving(Server, Detection, counters, engines["v3"], (75, 0, 23), rng,
+                  [(416, 416), (480, 640), (120, 90), (333, 222), (720, 1280), (256, 256)])
 
     log("phase 9: timings")
-    k1, k2, k3 = timings.time_all(engines, probe_results, card, rng)
+    k1, k2, k3, sc = timings.time_all(engines, probe_results, card, rng)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
-                 "yolo_quantization_tpu/ops/pallas_qconv.py:173", launches, errors.worst["qconv"]),
+                 "yolo_quantization_tpu/ops/pallas_qconv.py:173", launches[0], errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),
+        sc.entry("shortcut", "yolo_quantization_tpu_torch/csrc/shortcut.cu",
+                 "yolo_quantization_tpu/infer/engine.py:428-469", main_launches["v3"][2],
+                 errors.worst["shortcut"]),
         k3["a"].entry("orientation_a", "yolo_quantization_tpu_torch/csrc/gemm_probe.cu",
                       "scripts/mxu_orientation_probe.py:47", probe_launches["orientation_a"],
                       errors.worst["orientation_a"]),

@@ -353,7 +353,8 @@ def test_npz_program_runs_k1_only_under_use_s2d(programs, images, monkeypatch, t
 
 
 @pytest.mark.parametrize("extra,kind", [
-    ((G.ShortcutSpec(index=0),), "shortcut"),
+    # the integer shortcut takes linear, leaky, relu and relu6 only
+    ((G.ShortcutSpec(index=0, activation="logistic"),), "shortcut"),
     ((G.ConvSpec(8, 3, pad=1, quantized=False),), "fconv"),
     ((G.AvgPoolSpec(),), "simple"),
 ])
@@ -385,9 +386,15 @@ def test_cuda_engine_matches_cpu_engine(programs, images):
         hc, oc = cpu.raw_heads(x, return_outputs=True)
         for a, b in zip(og + hg, oc + hc):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="stride-2"):
-        tengine.Engine(_program(_small_net(())), device="cuda").predict(
-            np.zeros((1, 32, 32, 3), np.float32))
+    # layer 0 is a stride-2 conv: K1 runs it on the card
+    prog = _program(_small_net(()))
+    x = np.random.default_rng(4).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    before = cuda_qconv.launches
+    hg, og = tengine.Engine(prog, device="cuda").raw_heads(x, return_outputs=True)
+    assert cuda_qconv.launches - before == 3
+    hc, oc = tengine.Engine(prog, device="cpu").raw_heads(x, return_outputs=True)
+    for a, b in zip(og + hg, oc + hc):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

@@ -171,9 +171,15 @@ def test_wrapper_on_cpu_runs_the_plain_version(rng, fuse_pool):
         ref = tqconv.quantized_conv2d(*args, 4, None, 9, pad=1, act=ACT_RELU6, symmetric=True,
                                       out_i8=True)
     assert torch.equal(got, ref)
+    got2 = cuda_qconv.quantized_conv2d_cuda(*args, 4, stride=2, pad=1, act=ACT_RELU6, out_zp_static=9)
+    assert got2.shape == (1, 8, 8, 16)
+    assert torch.equal(got2, tqconv.quantized_conv2d(*args, 4, None, 9, stride=2, pad=1, act=ACT_RELU6,
+                                                     symmetric=True))
     assert cuda_qconv.launches == before
-    with pytest.raises(NotImplementedError, match="stride 2"):
-        cuda_qconv.quantized_conv2d_cuda(*args, 4, stride=2, pad=1)
+    with pytest.raises(ValueError, match="stride 1"):
+        cuda_qconv.quantized_conv2d_cuda(*args, 4, stride=2, pad=1, fuse_pool=True)
+    with pytest.raises(ValueError, match="stride 3"):
+        cuda_qconv.quantized_conv2d_cuda(*args, 4, stride=3, pad=1)
     odd = args[0][:, :15, :15].contiguous()
     with pytest.raises(ValueError, match="even"):
         cuda_qconv.quantized_conv2d_cuda(odd, *args[1:], 4, pad=1, fuse_pool=True)
@@ -250,9 +256,9 @@ def test_pack_weights_layout():
 
 
 def _im2col(x_i8, k, pad, x_zp):
-    """Numpy im2col of shifted codes: rows are output pixels (n, y, x),
-    columns the window in HWIO flatten order (ky, kx, ci), padding taps at
-    the input zero point, K zero-padded to a multiple of 32."""
+    """Numpy im2col of shifted codes (stride 1): rows are output pixels (n,
+    y, x), columns the window in HWIO flatten order (ky, kx, ci), padding
+    taps at the input zero point, K zero-padded to a multiple of 32."""
     n, h, w, ci = x_i8.shape
     xp = np.full((n, h + 2 * pad, w + 2 * pad, ci), x_zp, np.int64)
     xp[:, pad:pad + h, pad:pad + w] = x_i8
@@ -288,6 +294,57 @@ def test_implicit_gemm_matches_jax_conv_acc(rng, ci, k, symmetric):
     ref = jqconv.conv_acc_int32(jnp.asarray(x), jnp.asarray(w), jnp.int32(x_zp),
                                 jnp.asarray(w_zp), 1, pad, symmetric=symmetric)
     np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+def _k1_rows_stride(x_i8, k, pad, stride, x_zp):
+    """K1's A operand at any stride, element by element as its loaders fill
+    it: GEMM row r is output pixel (img, oy, ox) in NHWC order, its window
+    origin input pixel (oy * stride, ox * stride); K index kk is tap kk // Ci
+    (dy, dx) = divmod(tap, k), channel kk % Ci; a pixel outside the map is
+    the zero point, K past k*k*Ci code 0.  Geometry (H + 2 pad - k) //
+    stride + 1."""
+    n, h, w, ci = x_i8.shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    r = np.arange(n * ho * wo)
+    img, rem = np.divmod(r, ho * wo)
+    oy, ox = np.divmod(rem, wo)
+    k_real = k * k * ci
+    kk = np.arange(k_real + -k_real % 32)
+    tap, c = np.divmod(np.minimum(kk, k_real - 1), ci)
+    dy, dx = np.divmod(tap, k)
+    iy = (oy * stride)[:, None] + dy[None, :] - pad
+    ix = (ox * stride)[:, None] + dx[None, :] - pad
+    inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    vals = x_i8[img[:, None], np.clip(iy, 0, h - 1), np.clip(ix, 0, w - 1), c[None, :]].astype(np.int64)
+    a = np.where(inside, vals, x_zp)
+    a[:, kk >= k_real] = 0
+    return a, (n, ho, wo)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("ci", [3, 16, 64])
+@pytest.mark.parametrize("h,w,k,pad", [(13, 13, 3, 1), (9, 11, 3, 1), (8, 10, 3, 1), (7, 6, 1, 0)])
+def test_stride2_rows_match_jax_conv_acc(rng, h, w, k, pad, ci, symmetric):
+    """K1's stride-2 row -> pixel map times the packed weights, minus w_zp[o]
+    times the row sum (the ASYM patchsum, padding taps included), equals the
+    JAX package's conv_acc_int32 at stride 2; odd maps give darknet's odd
+    outputs (13 -> 7)."""
+    x = rng.integers(-128, 128, (2, h, w, ci), dtype=np.int8)
+    wt = rng.integers(-128, 128, (k, k, ci, 20), dtype=np.int8)
+    w_zp = rng.integers(-128, 128, (20,)).astype(np.int32)
+    x_zp = -37
+    a, (n, ho, wo) = _k1_rows_stride(x, k, pad, 2, x_zp)
+    assert (ho, wo) == ((h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1)
+    b = cuda_qconv.pack_weights(torch.from_numpy(wt)).numpy().astype(np.int64)
+    acc = (a @ b.T)[:, :20]
+    if not symmetric:
+        acc = acc - w_zp.astype(np.int64) * a.sum(axis=1, keepdims=True)
+    got = _wrap_i32(acc).reshape(n, ho, wo, 20)
+    ref = jqconv.conv_acc_int32(jnp.asarray(x), jnp.asarray(wt), jnp.int32(x_zp),
+                                jnp.asarray(w_zp), 2, pad, symmetric=symmetric)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    # at stride 1 the same map is the im2col above
+    np.testing.assert_array_equal(_k1_rows_stride(x, k, pad, 1, x_zp)[0], _im2col(x, k, pad, x_zp)[0])
 
 
 @pytest.mark.parametrize("n,h,w", [(2, 6, 10), (1, 14, 6), (3, 4, 4)])
@@ -420,3 +477,47 @@ def test_cuda_kernel_rejects_unaligned_input():
     m = torch.ones(co, dtype=torch.float32, device="cuda")
     with pytest.raises(ValueError, match="16-byte boundary"):
         cuda_qconv.quantized_conv2d_cuda(x, wt, bias, m, 0, pad=1)
+
+
+# K1 at stride 2 (n, h, w, ci, co, k, pad) by loader and by the block tile
+# the launch table gives them on a 132-SM card: the byte gather (Ci 3, 6,
+# 8), 16-byte copies through L1 (Ci <= 32) and not (Ci 64, 128), each N
+# tile, M off the tile, odd maps (13 -> 7), 1x1 at stride 2
+STRIDE2_EDGES = [
+    (2, 13, 13, 3, 30, 3, 1), (3, 9, 11, 6, 130, 3, 1), (1, 20, 20, 8, 16, 3, 1),
+    (2, 26, 26, 16, 16, 3, 1), (1, 13, 13, 16, 30, 3, 1), (8, 50, 60, 32, 30, 3, 1),
+    (2, 13, 13, 32, 64, 3, 1), (9, 40, 40, 32, 64, 3, 1), (1, 13, 13, 64, 130, 3, 1),
+    (16, 26, 26, 128, 256, 3, 1), (2, 9, 11, 64, 40, 1, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["", "asym", "all"])
+@pytest.mark.parametrize("n,h,w,ci,co,k,pad", STRIDE2_EDGES)
+def test_cuda_kernel_stride2_matches_plain(rng, n, h, w, ci, co, k, pad, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    x = rng.integers(-128, 128, (n, h, w, ci), dtype=np.int8)
+    wt = rng.integers(-128, 128, (k, k, ci, co), dtype=np.int8)
+    m_scale = 40.0 / (np.sqrt(k * k * ci) * 5300.0)
+    if variant == "all":  # per-image zero point and bias/m, exact_leaky, the int16 carrier
+        x_zp = torch.from_numpy(rng.integers(-128, 128, (n,)).astype(np.int32))
+        bias = rng.integers(-(2**14), 2**14, (n, co)).astype(np.int32)
+        m = (rng.uniform(0.5, 2.0, (n, co)) * m_scale).astype(np.float32)
+        opts = dict(exact_leaky=True, carrier="int16")
+    else:
+        x_zp = -45
+        bias = rng.integers(-(2**14), 2**14, (co,)).astype(np.int32)
+        m = (rng.uniform(0.5, 2.0, (co,)) * m_scale).astype(np.float32)
+        opts = {}
+    w_zp = torch.from_numpy(rng.integers(-128, 128, (co,)).astype(np.int32)) if variant else None
+    args = [torch.from_numpy(a) for a in (x, wt, bias, m)]
+    call = dict(stride=2, pad=pad, act=ACT_LEAKY, out_zp_static=77, out_i8=True, **opts)
+    ref = cuda_qconv.quantized_conv2d_cuda(*args, x_zp, w_zp=w_zp, **call)
+    cu = lambda t: t.cuda() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    before = cuda_qconv.launches
+    got = cuda_qconv.quantized_conv2d_cuda(*[cu(a) for a in args], cu(x_zp), w_zp=cu(w_zp), **call)
+    torch.cuda.synchronize()
+    assert cuda_qconv.launches == before + 1
+    assert got.shape == ref.shape == (n, (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1, co)
+    assert torch.equal(got.cpu(), ref)

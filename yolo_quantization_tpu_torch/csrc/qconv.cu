@@ -2,11 +2,14 @@
 //
 // Replaces yolo_quantization_tpu/ops/pallas_qconv.py::pallas_quantized_conv2d
 // (kernel body _qconv_kernel), and covers what the reference engine left to
-// XLA beside it.  Same function: a stride-1 KxK conv over shifted-int8 NHWC
-// codes padded with the input zero point, int8 x int8 -> int32 accumulation,
-// then the epilogue of common.cuh; with fuse_pool the 2x2/s2 max is taken on
-// the int32 accumulators before the epilogue (exact: the epilogue is monotone
-// nondecreasing in the corrected accumulator, since m > 0).
+// XLA beside it.  Same function: a stride-1 or stride-2 KxK conv over
+// shifted-int8 NHWC codes padded with the input zero point, int8 x int8 ->
+// int32 accumulation, then the epilogue of common.cuh; darknet's output
+// geometry, (H + 2 pad - K) / stride + 1.  With fuse_pool (stride 1 only) the
+// 2x2/s2 max is taken on the int32 accumulators before the epilogue (exact:
+// the epilogue is monotone nondecreasing in the corrected accumulator, since
+// m > 0).  The Pallas kernel took stride 1 only; yolov3's five stride-2
+// downsampling convs ran on XLA there.
 //
 // Options: asymmetric weights (ASYM: acc -= w_zp[o] * patchsum, the window
 // sum of the codes, padding taps included; yolo_quantization_tpu/ops/
@@ -35,11 +38,13 @@
 //     cp.async copies while the warps multiply an earlier slab.  A layer
 //     with fewer slabs (the stem has one) gets fewer slots, so more blocks
 //     fit on an SM.
-//   - The A tile is an implicit im2col: each row is one output pixel.  Three
-//     loaders (template MODE):
+//   - The A tile is an implicit im2col: each row is one output pixel, whose
+//     window starts at input pixel (oy * stride - pad, ox * stride - pad).
+//     Three loaders (template MODE):
 //     kVec (Ci % 16 == 0): a 16-byte chunk of K is one tap's 16 channels,
 //       copied straight from NHWC; through L1 (cp.async.ca) when Ci <= 32,
-//       where the 3x3 windows of a block's rows overlap 9-fold.
+//       where the 3x3 windows of a block's rows overlap 9-fold (2.25-fold
+//       at stride 2, where L1 was timed faster than .cg too).
 //     kStem (the 3-channel 3x3 stem with its pool fused): each thread loads
 //       one pooled window's 4x4x3 input patch once, 48 bytes instead of
 //       4 x 27, and builds its four pixels' 27 codes in registers.
@@ -91,7 +96,8 @@ struct Params {
   const int32_t* x_zp_img;  // (N,) per-image input zero point, or null
   Epilogue e;
   uint8_t* out;             // (N, Ho, Wo, Co), or pooled (N, Ho/2, Wo/2, Co)
-  int h, w_in, ci, co, k, pad, h_out, w_out;
+  int h, w_in, ci, co, k, pad, stride;
+  int h_out, w_out;         // (h + 2 pad - k) / stride + 1, and the same along W
   int k_real, k_pad, co_pad;  // GEMM depth k*k*Ci, padded to 32; Co padded to 16
   int x_zp, pool;
   int outs;                 // output pixels: N*Ho*Wo, or pooled windows
@@ -156,8 +162,8 @@ __global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
   // t/4 + i*A_ROWS (4 threads read a pixel's 64 contiguous bytes); kByte,
   // thread t fills row t; kStem finds its own (load_stage).
   const int a_col = t & 3;
-  const int8_t* a_src[A_ITERS];  // the row's pixel in x
-  int a_oy[A_ITERS], a_ox[A_ITERS];
+  const int8_t* a_src[A_ITERS];  // the row's window origin in x: pixel (oy * stride, ox * stride)
+  int a_iy[A_ITERS], a_ix[A_ITERS];  // that pixel's coordinates (kFar past the end)
   uint32_t a_zp[A_ITERS];        // the row's image's zero-point code, 4 lanes
 #pragma unroll
   for (int i = 0; i < A_ITERS && MODE != kStem; ++i) {
@@ -165,9 +171,9 @@ __global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
     const bool valid = row_pixel(p, m0 + (VEC ? t / 4 : t) + i * A_ROWS, img, oy, ox);
     const int zp = p.x_zp_img ? p.x_zp_img[img] : p.x_zp;
     a_zp[i] = (uint32_t)(uint8_t)(int8_t)zp * 0x01010101u;
-    a_src[i] = p.x + ((size_t)(img * p.h + oy) * p.w_in + ox) * p.ci;
-    a_oy[i] = valid ? oy : kFar;
-    a_ox[i] = ox;
+    a_src[i] = p.x + ((size_t)(img * p.h + oy * p.stride) * p.w_in + ox * p.stride) * p.ci;
+    a_iy[i] = valid ? oy * p.stride : kFar;
+    a_ix[i] = ox * p.stride;
   }
 
   // Stage the K slab [k0, k0 + 64) (or the last 32) into ring slot `slot`.
@@ -235,7 +241,7 @@ __global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
         for (int b = 0; b < 32; ++b) {
           // every load is issued (from x itself where the code is not read),
           // so all 32 are in flight together; the select comes after
-          const int iy = a_oy[0] + dy - p.pad, ix = a_ox[0] + dx - p.pad;
+          const int iy = a_iy[0] + dy - p.pad, ix = a_ix[0] + dx - p.pad;
           const bool real = kb + b < p.k_real;  // past it: K padding, code 0
           const bool take = real && (unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_in;
           const int off = ((dy - p.pad) * p.w_in + dx - p.pad) * p.ci + c;
@@ -269,7 +275,7 @@ __global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
 #pragma unroll
     for (int i = 0; i < A_ITERS; ++i) {
       uint8_t* dst = arow + i * A_ROWS * kRowBytes;
-      const int iy = a_oy[i] + dy - p.pad, ix = a_ox[i] + dx - p.pad;
+      const int iy = a_iy[i] + dy - p.pad, ix = a_ix[i] + dx - p.pad;
       if ((unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_in) {
         if (p.ci <= 32) {
           yq::cp_async16_l1(yq::smem_addr(dst), a_src[i] + off);
@@ -458,7 +464,6 @@ cudaError_t launch_tile(const Params& p, cudaStream_t s) {
 // ---- the int16 carrier: a scalar kernel ----
 
 constexpr int kI16Threads = 256;
-constexpr int kChunkWords = 16;  // shared-memory words (int16 pairs) per position and stage
 
 // One 32-bit shared word of the int16 carrier: 2 int16 lanes.
 struct I16Word {
@@ -478,9 +483,13 @@ struct I16Word {
   __device__ static __forceinline__ int lane_sum(int a, int acc) { return acc + (int)(int16_t)a + (a >> 16); }
 };
 
-// CG threads share one 2x2 window, each with 4 channels: TC = 4*CG output
-// channels per block, 256/CG windows arranged WY x WX.
-template <int CG>
+// CG threads share one 2x2 window of output pixels, each with 4 channels:
+// TC = 4*CG output channels per block, 256/CG windows arranged WY x WX, an
+// output tile of TH x TW pixels whose input patch at stride S is
+// ((TH-1)*S + K) x ((TW-1)*S + K).  CHUNK shared words (int16 pairs) of
+// channels per position and stage; stride 2 halves it, so its 4x larger
+// patch still fits the 48 KB of static shared memory.
+template <int CG, int S>
 struct I16Tile {
   static constexpr int TC = 4 * CG;
   static constexpr int WINDOWS = kI16Threads / CG;
@@ -488,17 +497,19 @@ struct I16Tile {
   static constexpr int WY = WINDOWS / WX;
   static constexpr int TH = 2 * WY;
   static constexpr int TW = 2 * WX;
+  static constexpr int CHUNK = S == 1 ? 16 : 8;
   // odd word strides (+1) keep the per-thread shared loads conflict-free
-  static constexpr int IN_WORDS = (TH + kMaxK - 1) * (TW + kMaxK - 1) * (kChunkWords + 1);
-  static constexpr int W_WORDS = TC * (kMaxK * kMaxK * kChunkWords + 1);
+  static constexpr int IN_WORDS = ((TH - 1) * S + kMaxK) * ((TW - 1) * S + kMaxK) * (CHUNK + 1);
+  static constexpr int W_WORDS = TC * (kMaxK * kMaxK * CHUNK + 1);
+  static_assert((IN_WORDS + W_WORDS) * 4 <= 48 * 1024, "static shared memory");
 };
 
 // Each thread owns one 2x2 output window and 4 output channels; input
-// channels are walked in chunks of 32 (16 words), each chunk staging the
-// zero-point-padded input window and the chunk's weights in shared memory.
-template <int CG, bool ASYM>
+// channels are walked in chunks of 2 * CHUNK, each chunk staging the
+// zero-point-padded input patch and the chunk's weights in shared memory.
+template <int CG, int S, bool ASYM>
 __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) {
-  using T = I16Tile<CG>;
+  using T = I16Tile<CG, S>;
   using Wd = I16Word;
   constexpr int L = Wd::kLanes;  // channels per shared word
   __shared__ int xs[T::IN_WORDS];
@@ -513,8 +524,8 @@ __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) 
   const int o0 = blockIdx.y * T::TC;
   const int img = blockIdx.z;
   const int K = p.k, KK = K * K;
-  const int IW = T::TW + K - 1;
-  const int npos = (T::TH + K - 1) * IW;
+  const int IW = (T::TW - 1) * S + K;
+  const int npos = ((T::TH - 1) * S + K) * IW;
   const int8_t zp_code = (int8_t)(p.x_zp_img ? p.x_zp_img[img] : p.x_zp);
   const int nwords = (p.ci + L - 1) / L;  // shared words per pixel
   const size_t img_base = (size_t)img * p.h * p.w_in;
@@ -528,8 +539,8 @@ __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) 
     for (int j = 0; j < 4; ++j) acc[j][q] = 0;
   }
 
-  for (int c0 = 0; c0 < nwords; c0 += kChunkWords) {
-    const int cw = min(kChunkWords, nwords - c0);
+  for (int c0 = 0; c0 < nwords; c0 += T::CHUNK) {
+    const int cw = min(T::CHUNK, nwords - c0);
     const int ips = cw | 1;         // input word stride per position
     const int wrs = (KK * cw) | 1;  // weight word stride per channel
     __syncthreads();                // the previous chunk's reads are done
@@ -537,7 +548,7 @@ __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) 
     for (int idx = t; idx < npos * cw; idx += kI16Threads) {
       const int pos = idx / cw, q = idx - pos * cw;
       const int py = pos / IW, px = pos - py * IW;
-      const int iy = y0 - p.pad + py, ix = x0 - p.pad + px;
+      const int iy = y0 * S - p.pad + py, ix = x0 * S - p.pad + px;
       const bool inside = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w_in;
       const size_t pix = img_base + (size_t)iy * p.w_in + ix;
       uint32_t v = 0;  // channels past Ci stay 0, as do their weights
@@ -567,13 +578,13 @@ __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) 
 
     for (int tap = 0; tap < KK; ++tap) {
       const int dy = tap / K, dx = tap - dy * K;
-      const int* xp = xs + ((2 * wy + dy) * IW + 2 * wx + dx) * ips;
+      const int* xp = xs + ((2 * wy * S + dy) * IW + 2 * wx * S + dx) * ips;
       const int* wp = ws + cg * wrs + tap * cw;
-      for (int q = 0; q < cw; ++q) {
+      for (int q = 0; q < cw; ++q) {  // the window's pixels are S patch positions apart
         const int a0 = xp[q];
-        const int a1 = xp[ips + q];
-        const int a2 = xp[IW * ips + q];
-        const int a3 = xp[(IW + 1) * ips + q];
+        const int a1 = xp[S * ips + q];
+        const int a2 = xp[S * IW * ips + q];
+        const int a3 = xp[S * (IW + 1) * ips + q];
         if (ASYM) {
           ps[0] = Wd::lane_sum(a0, ps[0]);
           ps[1] = Wd::lane_sum(a1, ps[1]);
@@ -625,21 +636,26 @@ __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) 
   }
 }
 
-template <int CG, bool ASYM>
+template <int CG, int S, bool ASYM>
 cudaError_t launch_i16(Params p, int n, cudaStream_t stream) {
-  using T = I16Tile<CG>;
+  using T = I16Tile<CG, S>;
   p.tiles_x = (p.w_out + T::TW - 1) / T::TW;
   const int tiles_y = (p.h_out + T::TH - 1) / T::TH;
   const dim3 grid(p.tiles_x * tiles_y, (p.co + T::TC - 1) / T::TC, n);
-  qconv_i16_kernel<CG, ASYM><<<grid, kI16Threads, 0, stream>>>(p);
+  qconv_i16_kernel<CG, S, ASYM><<<grid, kI16Threads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int S, bool ASYM>
+cudaError_t launch_i16_cg(const Params& p, int n, cudaStream_t s) {
+  if (p.co <= 16) return launch_i16<4, S, ASYM>(p, n, s);
+  if (p.co <= 32) return launch_i16<8, S, ASYM>(p, n, s);
+  return launch_i16<16, S, ASYM>(p, n, s);
 }
 
 template <bool ASYM>
 cudaError_t launch_i16_tile(const Params& p, int n, cudaStream_t s) {
-  if (p.co <= 16) return launch_i16<4, ASYM>(p, n, s);
-  if (p.co <= 32) return launch_i16<8, ASYM>(p, n, s);
-  return launch_i16<16, ASYM>(p, n, s);
+  return p.stride == 1 ? launch_i16_cg<1, ASYM>(p, n, s) : launch_i16_cg<2, ASYM>(p, n, s);
 }
 
 }  // namespace
@@ -647,14 +663,16 @@ cudaError_t launch_i16_tile(const Params& p, int n, cudaStream_t s) {
 // Plain C entry for ctypes.  Shapes are validated by the Python wrapper;
 // returns the launch's cudaError_t (0 on success).  w is pack_weights'
 // (Co_pad, K_pad) layout; w_zp null means symmetric weights, x_zp_img null
-// the static x_zp; bm_per_image selects (N, Co) bias/m; carrier16 the int16
-// carrier.
+// the static x_zp; stride 1 or 2 (fuse_pool with stride 1 only);
+// bm_per_image selects (N, Co) bias/m; carrier16 the int16 carrier.
 extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const void* x_zp_img,
                         const void* bias, const void* m, void* out, int n, int h, int w_in,
-                        int ci, int co, int k, int pad, int x_zp, int out_zp, int act,
-                        int exact_leaky, int out_i8, int fuse_pool, int bm_per_image,
+                        int ci, int co, int k, int pad, int stride, int x_zp, int out_zp,
+                        int act, int exact_leaky, int out_i8, int fuse_pool, int bm_per_image,
                         int carrier16, void* stream) {
-  if (n < 1 || n > 65535 || k < 1 || k > kMaxK || ci < 1 || co < 1 || pad < 0) {
+  if (n < 1 || n > 65535 || k < 1 || k > kMaxK || ci < 1 || co < 1 || pad < 0 ||
+      (stride != 1 && stride != 2) || (fuse_pool && stride != 1) || h + 2 * pad < k ||
+      w_in + 2 * pad < k) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -676,8 +694,9 @@ extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const vo
   p.co = co;
   p.k = k;
   p.pad = pad;
-  p.h_out = h + 2 * pad - k + 1;
-  p.w_out = w_in + 2 * pad - k + 1;
+  p.stride = stride;
+  p.h_out = (h + 2 * pad - k) / stride + 1;
+  p.w_out = (w_in + 2 * pad - k) / stride + 1;
   p.k_real = k * k * ci;
   p.k_pad = (p.k_real + 31) / 32 * 32;
   p.co_pad = (co + 15) / 16 * 16;

@@ -4,14 +4,17 @@ The counterpart of ``yolo_quantization_tpu/infer/engine.py``: the float (or
 uint8) NHWC image batch is quantized on the device to the shifted int8
 representation (uint8 code - 128), every conv runs through a hand-written
 CUDA kernel (``ops/cuda_qconv.py``, and with ``use_s2d`` the stem's
-``ops/cuda_s2d.py``; their plain PyTorch versions on the CPU),
+``ops/cuda_s2d.py``), every integer shortcut through another
+(``ops/cuda_shortcut.py``), each with its plain PyTorch version on the CPU;
 maxpool/route/upsample stay on codes, the quant_stop heads are dequantized,
 and yolo decode + top-k run on the device before the host gets the result.
 
-Slice coverage: qconv (stride 1 on CUDA, any weights), maxpool, upsample,
-route (with requant), yolo; the options ``use_s2d``, ``dynamic_input``,
-``exact_leaky`` and ``carrier="int16"``; flip TTA and ``at_size``.  Every
-other layer kind raises ``NotImplementedError`` naming its ROADMAP item.
+Coverage: qconv (stride 1 and 2, any weights), maxpool, upsample, route
+(with requant), the integer shortcut (int8 operands; linear, leaky, relu,
+relu6), yolo: yolov3-tiny and yolov3.  The options ``use_s2d``,
+``dynamic_input``, ``exact_leaky`` and ``carrier="int16"``; flip TTA and
+``at_size``.  Every other layer kind, and a shortcut with another
+activation, raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ from yolo_quantization_tpu_torch.nn.graph import (
     ShortcutSpec,
     YoloSpec,
 )
-from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, qconv
+from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut
+from yolo_quantization_tpu_torch.ops.qconv import ACTIVATION_BY_NAME
+from yolo_quantization_tpu_torch.ops.shortcut import shortcut_params
 
 _KIND_ROADMAP = {
-    "shortcut": "ROADMAP: the yolov3 slice (integer shortcut)",
-    "shortcut_f32": "ROADMAP: the yolov3 slice (integer shortcut)",
+    "shortcut_f32": "ROADMAP queue 1.6 (float layers)",
     "fconv": "ROADMAP queue 1.6 (float layers)",
     "route_f32": "ROADMAP queue 1.6 (float layers)",
     "simple": "ROADMAP queue 1.6 (float layers)",
@@ -125,9 +129,10 @@ def fusion_plan(program: IntProgram) -> set[int]:
     """Convs whose following 2x2/s2 maxpool runs inside the conv kernel.
 
     Mirrors the reference engine's plan, with the kernel's own eligibility
-    (stride 1, any weights, any Cin): not a quant_stop head, even output
-    dims, the next layer a size-2/stride-2 pool, and no route or shortcut
-    reading the conv's (never materialized) pre-pool output.  Asymmetric
+    (stride 1, any weights, any Cin; the kernel fuses no pool at stride 2):
+    not a quant_stop head, even output dims, the next layer a
+    size-2/stride-2 pool, and no route or shortcut reading the conv's (never
+    materialized) pre-pool output.  Asymmetric
     convs qualify: the pool is a max on the zero-point-corrected
     accumulators, and the epilogue is monotone in them (m > 0).
     """
@@ -214,12 +219,20 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
     for c in cfg:
         if c.kind in _KIND_ROADMAP:
             _unsupported(f"layer kind {c.kind!r}", _KIND_ROADMAP[c.kind])
+        if c.kind == "shortcut" and c.spec.activation not in ACTIVATION_BY_NAME:
+            _unsupported(f"a shortcut with activation {c.spec.activation!r}",
+                         "ROADMAP queue 1.6 (float layers)")
 
     fused = fusion_plan(program)
     s2d = {i for i, c in enumerate(cfg) if c.s2d_pool} if use_s2d else set()
     # per-layer scalars stay host ints: reading them from device would sync
     x_zp = {i: int(program.arrays[i]["x_zp"]) for i, c in enumerate(cfg) if c.kind == "qconv"}
     k_elems0 = int(np.prod(program.arrays[0]["w_i8"].shape[:3])) if dynamic_input else 0
+    # each integer shortcut's float32 constants, from float64 on the host
+    shortcuts = {
+        i: shortcut_params(*c.in_scales, c.out_scale, c.out_zp, c.spec.activation)
+        for i, c in enumerate(cfg) if c.kind == "shortcut"
+    }
 
     def conv(i, c, a, x, zp, bias, m):
         s = c.spec
@@ -233,19 +246,11 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 x, a["w_s2d"], bias, m, zp, act=c.act, out_zp_static=int(c.out_zp),
                 w_packed=a.get("w_s2d_packed"), exact_leaky=exact_leaky,
             )
-        w_zp = None if c.symmetric_w else a["w_zp"]
-        if s.stride == 1:
-            return cuda_qconv.quantized_conv2d_cuda(
-                x, a["w_i8"], bias, m, zp, stride=1, pad=s.pad, act=c.act,
-                out_zp_static=int(c.out_zp), fuse_pool=i in fused, out_i8=True,
-                w_packed=a.get("w_packed"), w_zp=w_zp, carrier=carrier, exact_leaky=exact_leaky,
-            )
-        if x.is_cuda:
-            _unsupported(f"layer {i}: stride-{s.stride} conv on CUDA", "ROADMAP: the yolov3 slice")
-        return qconv.quantized_conv2d(
-            x, a["w_i8"], bias, m, zp, a["w_zp"], int(c.out_zp), stride=s.stride, pad=s.pad,
-            act=c.act, symmetric=c.symmetric_w, out_i8=True, carrier=carrier,
-            exact_leaky=exact_leaky,
+        return cuda_qconv.quantized_conv2d_cuda(
+            x, a["w_i8"], bias, m, zp, stride=s.stride, pad=s.pad, act=c.act,
+            out_zp_static=int(c.out_zp), fuse_pool=i in fused, out_i8=True,
+            w_packed=a.get("w_packed"), w_zp=None if c.symmetric_w else a["w_zp"],
+            carrier=carrier, exact_leaky=exact_leaky,
         )
 
     def forward(arrays, x):
@@ -291,6 +296,12 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                         t = _requant_i8(t, ratio, zp_in, c.out_zp)
                     parts.append(t)
                 y = torch.cat(parts, dim=-1)
+            elif c.kind == "shortcut":
+                skip = outputs[s.index]
+                if x.dtype != torch.int8 or skip.dtype != torch.int8:
+                    _unsupported(f"layer {i}: a shortcut with a float operand",
+                                 "ROADMAP queue 1.6 (float layers)")
+                y = cuda_shortcut.int_shortcut_cuda(x, skip, shortcuts[i])
             elif c.kind == "yolo":
                 if x.dtype == torch.int8:
                     # quantized pre-head conv without quant_stop

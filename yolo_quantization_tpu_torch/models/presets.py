@@ -6,7 +6,8 @@ seeded random weights and fixed synthetic quantization ranges.
 ``parity_program`` builds the configuration that matches the darknet C
 binary byte for byte: leaky yolov3-tiny with the reference's asymmetric
 weights and raw-byte route concat (run it with ``dynamic_input=True`` and
-``exact_leaky=True``).
+``exact_leaky=True``).  ``v3_program`` builds full yolov3 (darknet53, 80
+classes) the same way, the configuration ``scripts/bench_v3.py`` serves.
 """
 
 from __future__ import annotations
@@ -56,3 +57,30 @@ def parity_program(classes: int = 5, size: int = 416, seed: int = 0) -> IntProgr
     params = init_params_numpy(seed, net)
     return convert(net, params, synthetic_quant_state(net), symmetric_weights=False,
                    route_rescale=False)
+
+
+def perturbed_quant_state(qs):
+    """The ranges moved off the synthetic rationals: the idx-th tracked range
+    after the input gets its minimum scaled by 1 + 0.013 (idx + 1) and its
+    maximum by 1 + 0.017 (idx + 1).  Under synthetic ranges every leaky conv
+    and shortcut of yolov3 is [-2, 6], so each shortcut's ratios are 1 and
+    its constant an integer; learned ranges are never so round, and only
+    these exercise the shortcut's rounding."""
+    out = dict(qs)
+    for idx, key in enumerate(k for k in qs if k != "input"):
+        out[key] = {
+            "min": np.float32(qs[key]["min"]) * np.float32(1.0 + 0.013 * (idx + 1)),
+            "max": np.float32(qs[key]["max"]) * np.float32(1.0 + 0.017 * (idx + 1)),
+        }
+    return out
+
+
+def v3_program(classes: int = 80, size: int = 416, seed: int = 0, *, perturbed: bool = False,
+               symmetric_weights: bool = True) -> IntProgram:
+    """Full yolov3 from seeded weights and synthetic ranges, or with
+    ``perturbed`` the ranges of ``perturbed_quant_state``."""
+    net = zoo.yolov3(classes=classes, width=size, height=size)
+    qs = synthetic_quant_state(net)
+    if perturbed:
+        qs = perturbed_quant_state(qs)
+    return convert(net, init_params_numpy(seed, net), qs, symmetric_weights=symmetric_weights)

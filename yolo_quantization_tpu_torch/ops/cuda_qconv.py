@@ -1,13 +1,14 @@
 """Hand-written CUDA int8 conv kernel (``csrc/qconv.cu``) and its wrapper.
 
 Replaces ``yolo_quantization_tpu/ops/pallas_qconv.py::pallas_quantized_conv2d``:
-a fused stride-1 conv, the requant epilogue, and optionally the following
-darknet 2x2/s2 maxpool.  The int8 carrier is an implicit GEMM on the int8
-tensor cores (``mma.sync`` s8) over the weights packed by
-``pack_weights``.  Unlike the Pallas kernel it takes any input channel
-count, including the 3-channel stem, and the options the reference engine
-ran on XLA: asymmetric weights, a per-image input zero point and (N, Co)
-bias/m (``dynamic_input``), ``exact_leaky`` and the int16 carrier.
+a fused stride-1 or stride-2 conv, the requant epilogue, and optionally (at
+stride 1) the following darknet 2x2/s2 maxpool.  The int8 carrier is an
+implicit GEMM on the int8 tensor cores (``mma.sync`` s8) over the weights
+packed by ``pack_weights``.  Unlike the Pallas kernel it takes what the
+reference engine ran on XLA: stride 2 (yolov3's downsampling convs), any
+input channel count (the 3-channel stem), asymmetric weights, a per-image
+input zero point and (N, Co) bias/m (``dynamic_input``), ``exact_leaky``
+and the int16 carrier.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/qconv.py``); on a CUDA tensor it launches the kernel or raises —
@@ -38,6 +39,7 @@ _launches_lock = threading.Lock()  # the server's threads launch concurrently
 
 ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6)
 _MAX_K = 3
+_STRIDES = (1, 2)
 _CARRIERS = ("int8", "int16")
 
 
@@ -46,7 +48,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.yq_qconv
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     return lib
 
 
@@ -135,8 +137,9 @@ def quantized_conv2d_cuda(
     exact_leaky: bool = False,
     carrier: str = "int8",
 ) -> torch.Tensor:
-    """Fused integer conv (stride 1): the kernel's argument list is the
-    Pallas kernel's plus the reference engine's options.  ``w_packed`` is
+    """Fused integer conv, stride 1 or 2 (darknet's output geometry, (H + 2
+    pad - K) // stride + 1): the kernel's argument list is the Pallas
+    kernel's plus the reference engine's options.  ``w_packed`` is
     ``pack_weights(w_i8)``, precomputed by callers that run the same weights
     repeatedly.
 
@@ -145,22 +148,23 @@ def quantized_conv2d_cuda(
     x_zp_i32: the shifted input zero point, an int or per image an (N,)
     int32 tensor; w_zp: (Co,) int32 shifted weight zero points, None for
     symmetric weights.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with
-    ``out_i8``, pooled to (N,Ho/2,Wo/2,Co) with ``fuse_pool``.
+    ``out_i8``, pooled to (N,Ho/2,Wo/2,Co) with ``fuse_pool`` (stride 1
+    only).
     """
     global launches
-    if stride != 1:
-        raise NotImplementedError(
-            "stride 2 is not ported yet (ROADMAP: the yolov3 slice)"
-        )
+    if stride not in _STRIDES:
+        raise ValueError(f"unsupported stride {stride}: the kernel takes 1 or 2")
+    if fuse_pool and stride != 1:
+        raise ValueError("fuse_pool requires stride 1")
     if x_u8.dim() != 4 or w_i8.dim() != 4:
         raise ValueError(f"expected NHWC x and HWIO w, got {tuple(x_u8.shape)}, {tuple(w_i8.shape)}")
     n, h, w, ci = x_u8.shape
     k, k2, wci, co = w_i8.shape
-    h_out, w_out = h + 2 * pad - k + 1, w + 2 * pad - k + 1
     if k != k2 or wci != ci:
         raise ValueError(f"weights {tuple(w_i8.shape)} do not fit input {tuple(x_u8.shape)}")
-    if pad < 0 or h_out < 1 or w_out < 1:
-        raise ValueError(f"invalid geometry: pad {pad}, output {h_out}x{w_out}")
+    if pad < 0 or h + 2 * pad < k or w + 2 * pad < k:
+        raise ValueError(f"invalid geometry: pad {pad}, kernel {k}, input {h}x{w}")
+    h_out, w_out = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     if act not in ACTS:
         raise ValueError(f"unsupported quantized activation code {act}")
     if carrier not in _CARRIERS:
@@ -175,7 +179,7 @@ def quantized_conv2d_cuda(
             return quantized_conv2d_pool(x_u8, w_i8, bias_i32, m, x_zp, out_zp_static,
                                          pad=pad, w_zp_i32=w_zp, **kw)
         return quantized_conv2d(x_u8, w_i8, bias_i32, m, x_zp, w_zp, out_zp_static,
-                                stride=1, pad=pad, symmetric=w_zp is None, **kw)
+                                stride=stride, pad=pad, symmetric=w_zp is None, **kw)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
 
@@ -207,7 +211,7 @@ def quantized_conv2d_cuda(
         err = lib.yq_qconv(
             x.data_ptr(), w_packed.data_ptr(), None if w_zp is None else w_zp.data_ptr(),
             zp_ptr, bias_i32.data_ptr(), m.data_ptr(), out.data_ptr(),
-            n, h, w, ci, co, k, pad, zp_static, int(out_zp_static), act, int(exact_leaky),
+            n, h, w, ci, co, k, pad, stride, zp_static, int(out_zp_static), act, int(exact_leaky),
             int(out_i8), int(fuse_pool), int(per_image), int(carrier == "int16"), stream,
         )
     if err != 0:

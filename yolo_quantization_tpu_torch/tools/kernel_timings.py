@@ -6,10 +6,12 @@ A kernel's time is its device time: 20 calls captured in one CUDA graph,
 replayed between CUDA events, so the wrapper's host cost (Python checks,
 ctypes) is left out; the eager back-to-back time, which includes that host
 cost, is printed beside it.  Per-layer K1 vs plain (and ``torch._int_mm``,
-graph-timed, on the 1x1 layers its shape rules allow), K2 vs K1's fused stem
-per layer, device forwards of the three engines at batch 1, 16 and 64
-(eager, CUDA events), the probe cases vs ``torch._int_mm``.  Prints, checks
-nothing.
+graph-timed, on the 1x1 layers its shape rules allow) on the flagship's 13
+convs and on yolov3's five stride-2 convs, K2 vs K1's fused stem per layer,
+the shortcut kernel on one shortcut of each yolov3 stage vs its plain
+chain, device forwards of the engines at batch 1, 16 and 64 (eager, CUDA
+events; yolov3 at 16 and 64), the probe cases vs ``torch._int_mm``.  Each
+time sits beside its bound.  Prints, checks nothing.
 
 ``chip_smoke.py`` runs ``time_all`` as its last phase.  Run alone, the
 module builds the kernels and the engines itself; copied into an older
@@ -29,6 +31,8 @@ import torch
 # flagship conv layers (yolov3-tiny at 416) in layer order
 FLAGSHIP_CONVS = (0, 2, 4, 6, 8, 10, 12, 13, 14, 15, 18, 21, 22)
 S2D_LAYERS = (0, 2, 4)
+# one shortcut of each of yolov3's five stages (the stage's first)
+V3_SHORTCUTS = (4, 8, 15, 40, 65)
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): int8 tensor cores, HBM3
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -85,6 +89,25 @@ def flagship_layers():
         act = ACT_RELU6 if s.activation == "relu6" else ACT_LINEAR
         out.append((i, h, w, ci, s.filters, s.size, s.pad, act, i in plan))
     return out
+
+
+def v3_stride2_layers():
+    """(layer, h, w, ci, co, k, pad) of yolov3's five stride-2 convs at 416."""
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn.graph import ConvSpec
+
+    net = zoo.yolov3(classes=80, width=416, height=416)
+    shapes = net.shapes()
+    return [(i, *shapes[i - 1], s.filters, s.size, s.pad) for i, s in enumerate(net.specs)
+            if isinstance(s, ConvSpec) and s.stride == 2]
+
+
+def v3_shortcut_shapes():
+    """(layer, h, w, c) of ``V3_SHORTCUTS`` at 416."""
+    from yolo_quantization_tpu_torch.models import zoo
+
+    shapes = zoo.yolov3(classes=80, width=416, height=416).shapes()
+    return [(i, *shapes[i]) for i in V3_SHORTCUTS]
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -203,6 +226,69 @@ def time_k1_layers(cuda_qconv, qconv, rng, card):
     return tot
 
 
+def time_k1_stride2(cuda_qconv, qconv, rng, card):
+    """K1 on yolov3's five stride-2 convs at batch 16 (symmetric, leaky)."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY
+
+    tot = Totals()
+    log(f"  K1 on yolov3's stride-2 convs at batch 16 [{card}]: kernel graph-timed, eager, plain:")
+    for (i, h, w, ci, co, k, pad) in v3_stride2_layers():
+        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, k)
+        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+        wp = cuda_qconv.pack_weights(wt_t)
+
+        def kernel():
+            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, stride=2, pad=pad, act=ACT_LEAKY,
+                                             out_zp_static=0, out_i8=True, w_packed=wp)
+
+        def plain():
+            qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, stride=2, pad=pad, act=ACT_LEAKY,
+                                   symmetric=True, out_i8=True)
+
+        g1, e1, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), graph_time_ms(kernel)
+        k_ms = (g1 + g2) / 2
+        p_ms = cuda_time_ms(plain, 5, warmup=1)
+        oh, ow = (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1
+        mac = 16 * oh * ow * co * k * k * ci
+        bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * oh * ow * co, 2 * mac)
+        tot.add(k_ms, e1, p_ms, bound, None)
+        log(f"    layer {i:2d} {h}x{w}x{ci}->{oh}x{ow}x{co} k{k}/s2: kernel {k_ms:.4f} ms "
+            f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound), eager {e1:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), library none [{card}]")
+    log(f"  the five stride-2 convs at batch 16: kernel {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms, "
+        f"bound {tot.bound_ms:.4f} ms [{card}]")
+    return tot
+
+
+def time_shortcut(cuda_shortcut, shortcut, rng, card):
+    """The shortcut kernel on one shortcut of each yolov3 stage at batch 16,
+    under leaky and off-unit ratios, vs the plain float32 chain."""
+    tot = Totals()
+    k = shortcut.shortcut_params((0.031, 101), (0.027, 93), 0.043, 77, "leaky")
+    log(f"  shortcut kernel at batch 16 [{card}]: kernel graph-timed, eager, plain chain:")
+    for (i, h, w, c) in v3_shortcut_shapes():
+        shape = (16, h, w, c)
+        x = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).cuda()
+        skip = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).cuda()
+
+        def kernel():
+            cuda_shortcut.int_shortcut_cuda(x, skip, k)
+
+        g1, e1, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), graph_time_ms(kernel)
+        k_ms = (g1 + g2) / 2
+        p_ms = cuda_time_ms(lambda: shortcut.int_shortcut(x, skip, k), 10)
+        codes = x.numel()
+        bound = bound_ms(3 * codes, 0)  # read two codes, write one
+        tot.add(k_ms, e1, p_ms, bound, None)
+        log(f"    layer {i:2d} 16x{h}x{w}x{c} ({codes / 1e6:.1f} M codes): kernel {k_ms:.4f} ms "
+            f"({3 * codes / k_ms / 1e9:.2f} TB/s, {bound[0] / k_ms:.1%} of bound), eager {e1:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms (bytes), library none [{card}]")
+    log(f"  five shortcuts at batch 16: kernel {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms, "
+        f"bound {tot.bound_ms:.4f} ms [{card}]")
+    return tot
+
+
 def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
     from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
 
@@ -245,15 +331,16 @@ def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
 
 
 def time_engines(engines, rng, card):
-    """Device forwards of the flagship, s2d and parity engines (CUDA
-    events); ``engines`` maps those names to CUDA engines."""
+    """Device forwards of the flagship, s2d and parity engines and of the
+    yolov3 ones (CUDA events); ``engines`` maps those names to CUDA
+    engines."""
     from yolo_quantization_tpu_torch.infer.engine import build_forward
 
     for b in (1, 16, 64):
         x = rng.uniform(0, 1, (b, 416, 416, 3)).astype(np.float32)
         xd = torch.from_numpy(x).cuda()
-        for cname in ("flagship", "s2d", "parity"):
-            if b == 1 and cname != "flagship":
+        for cname in ("flagship", "s2d", "parity", "v3", "v3-perturbed"):
+            if (b == 1 and cname != "flagship") or cname not in engines:
                 continue
             eng = engines[cname]
             forward = build_forward(eng.program, **eng.options)
@@ -264,7 +351,7 @@ def time_engines(engines, rng, card):
                     forward(eng.arrays, xd)
 
             dev_ms = cuda_time_ms(fwd, 10)
-            line = (f"  {cname:8s} batch {b:2d}: device forward {dev_ms:.3f} ms "
+            line = (f"  {cname:12s} batch {b:2d}: device forward {dev_ms:.3f} ms "
                     f"({b / dev_ms * 1e3:.1f} images/s)")
             if cname == "flagship":
                 iters = 20 if b < 64 else 5
@@ -302,34 +389,38 @@ def time_probe(probe, results, card):
 
 
 def time_all(engines, probe_results, card, rng):
-    """Every timing above; returns the Totals of K1, K2 and K3 ({"a", "b"})."""
-    from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, qconv
+    """Every timing above; returns the Totals of K1 (the flagship's 13
+    convs), K2, K3 ({"a", "b"}) and the shortcut kernel."""
+    from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut, qconv, shortcut
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
     k1 = time_k1_layers(cuda_qconv, qconv, rng, card)
+    time_k1_stride2(cuda_qconv, qconv, rng, card)
     k2 = time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card)
+    sc = time_shortcut(cuda_shortcut, shortcut, rng, card)
     time_engines(engines, rng, card)
     k3 = time_probe(probe, probe_results, card)
-    return k1, k2, k3
+    return k1, k2, k3, sc
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timings: needs a CUDA GPU")
     from yolo_quantization_tpu_torch.infer.engine import Engine
-    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d
+    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, cuda_shortcut
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
     from yolo_quantization_tpu_torch.tools.profile_engine import configurations
 
     t_start = time.perf_counter()
     card = card_identity()
     log(f"kernel timings: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    _build.build_all(("qconv", "s2d_qconv", "gemm_probe"))
+    _build.build_all(_build.LIBRARIES)
     cuda_qconv.build()
     cuda_s2d.build()
+    cuda_shortcut.build()
     probe.build()
     engines = {name: Engine(program, device="cuda", **option)
-               for name, (program, option) in configurations().items()}
+               for v3 in (False, True) for name, (program, option) in configurations(v3).items()}
     time_all(engines, list(probe.run_cases("cuda")), card, np.random.default_rng(0))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     return 0

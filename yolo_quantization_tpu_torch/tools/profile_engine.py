@@ -1,13 +1,16 @@
 """Device-time breakdown of the engine's forward on one GPU (torch.profiler).
 
-    python -m yolo_quantization_tpu_torch.tools.profile_engine [batch ...]
+    python -m yolo_quantization_tpu_torch.tools.profile_engine [--v3] [batch ...]
 
 For the flagship, ``use_s2d`` and C-parity configurations (yolov3-tiny, 416,
-5 classes, seeded weights) at each batch (default 16 and 64): the wall time
-per forward, the summed device kernel time, the device busy share (kernel
-time over wall time of the profiled window) and the kernels that take the
-most device time, and the share of each hand-written kernel (K1 sums its
-tile instantiations).  Prints one JSON line per configuration and batch.
+5 classes, seeded weights), or with ``--v3`` the yolov3 ones (80 classes,
+416: synthetic ranges, and perturbed ranges with asymmetric weights,
+``dynamic_input`` and ``exact_leaky``), at each batch (default 16 and 64):
+the wall time per forward, the summed device kernel time, the device busy
+share (kernel time over wall time of the profiled window) and the kernels
+that take the most device time, and the share of each hand-written kernel
+(K1 sums its tile instantiations).  Prints one JSON line per configuration
+and batch.
 """
 
 from __future__ import annotations
@@ -22,15 +25,23 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from yolo_quantization_tpu_torch.infer.engine import build_forward, device_arrays
-from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
+from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program, v3_program
 from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity
 
 ITERS = 5
 # the hand-written kernels by the names of their __global__ functions
-KERNELS = {"K1 qconv": ("qconv_mma_kernel", "qconv_i16_kernel"), "K2 s2d_qconv": ("s2d_mma_kernel",)}
+KERNELS = {"K1 qconv": ("qconv_mma_kernel", "qconv_i16_kernel"), "K2 s2d_qconv": ("s2d_mma_kernel",),
+           "shortcut": ("shortcut_kernel",)}
 
 
-def configurations():
+def configurations(v3: bool = False):
+    if v3:
+        return {
+            "v3": (v3_program(classes=80, size=416, seed=0), {}),
+            "v3-perturbed": (v3_program(classes=80, size=416, seed=0, perturbed=True,
+                                        symmetric_weights=False),
+                             dict(dynamic_input=True, exact_leaky=True)),
+        }
     flagship = flagship_program(classes=5, size=416, seed=0)
     return {
         "flagship": (flagship, {}),
@@ -81,8 +92,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA GPU")
     card = card_identity()
-    batches = [int(a) for a in argv] or [16, 64]
-    for name, (program, option) in configurations().items():
+    v3 = "--v3" in argv
+    batches = [int(a) for a in argv if a != "--v3"] or [16, 64]
+    for name, (program, option) in configurations(v3).items():
         for batch in batches:
             row = {"config": name, "batch": batch, "card": card, **breakdown(program, option, batch)}
             print(json.dumps(row), flush=True)
