@@ -56,7 +56,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      alone): each kernel graph-timed (its device time) beside its eager
      time, its bound, the plain version and torch._int_mm; K1 on yolov3's
      stride-2 convs; the shortcut kernel per yolov3 stage; the engines'
-     device forwards.
+     device forwards;
+ 10. the QAT forward and backward, GPU against CPU (tools/qat_check.py):
+     TF32 left at PyTorch's default, a float conv and its weight gradient
+     must match float64 to float32 accuracy (TF32 off inside the port);
+     yolov3-tiny at 416, batch 4: the whole float-train forward held by its
+     loss, then every layer from the CPU's inputs and loss cotangents in the
+     float-train, EMA-QAT-train, QAT-eval and learned modes (outputs, range
+     updates, batch statistics, gradients);
+ 11. the Trainer on the card: yolov3-tiny at 416, batch 16, two float, two
+     EMA-QAT, one learned-range and one frozen-range step, run twice from
+     one seed and equal bit for bit (training is deterministic), a
+     checkpoint saved and restored equal; ms per step, images/s and peak memory of the
+     float and EMA-QAT phases, and of yolov3 (416, 80 classes, batch 8) in
+     EMA-QAT; every loss finite; then tools/profile_train.py's breakdown;
+ 12. the synthetic accuracy gate of tests/test_accuracy_gate.py through the
+     port on the card: 800 steps at 96x96 (float, then QAT), convert, and
+     the integer Engine (K1, launches counted) against the fake-quant
+     simulation and the float engine: float F1 >= 60, integer >= QAT-sim -
+     0.5, integer >= float - 2.5.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -488,6 +506,8 @@ def engine_configs():
         "parity": (parity_program(classes=5, size=416, seed=0),
                    dict(dynamic_input=True, exact_leaky=True), (13, 0, 0)),
         "int16": (flagship, dict(carrier="int16"), (13, 0, 0)),
+        # each fused conv+pool as K1 then the integer pool: every layer its own output
+        "flagship-unfused": (flagship, dict(fuse_pool=False), (13, 0, 0)),
         **{name: (program, option, (75, 0, 23))
            for name, (program, option) in configurations(v3=True).items()},
     }
@@ -628,6 +648,283 @@ def phase_serving(Server, Detection, counters, engine, per_batch, rng, sizes):
     return launches
 
 
+def check_tf32_off(rng) -> None:
+    """With TF32 at PyTorch's default (on), the port's float conv and its
+    weight gradient must match float64 to float32 accuracy (TF32 products
+    carry 10 mantissa bits: about 1e-3 relative), and the default must be
+    left as it was."""
+    import torch.nn.functional as F
+
+    from yolo_quantization_tpu_torch.nn import layers as L
+
+    x = rng.standard_normal((4, 13, 13, 512)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 512, 256)) * 0.02).astype(np.float32)
+    g = rng.standard_normal((4, 13, 13, 256)).astype(np.float32)
+    xd, wd = torch.from_numpy(x).double(), torch.from_numpy(w).double().requires_grad_(True)
+    ref = L.conv2d(xd, wd, 1, 1)
+    ref.backward(torch.from_numpy(g).double())
+    xc = torch.from_numpy(x).cuda()
+    wc = torch.from_numpy(w).cuda().requires_grad_(True)
+    got = L.conv2d(xc, wc, 1, 1)
+    got.backward(torch.from_numpy(g).cuda())
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the port's conv changed the global TF32 setting")
+    rel = lambda a, b: float((a.double().cpu() - b).abs().max() / b.abs().max())  # noqa: E731
+    err_y, err_w = rel(got.detach(), ref.detach()), rel(wc.grad, wd.grad)
+    with torch.no_grad():
+        tf32 = F.conv2d(xc.permute(0, 3, 1, 2), wc.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    log(f"  conv 13x13x512 -> 256 (K = 4608) on the card vs float64: output {err_y:.2e}, weight "
+        f"gradient {err_w:.2e} (relative to the largest); a plain F.conv2d with TF32 allowed: "
+        f"{rel(tf32, ref.detach()):.2e}")
+    if err_y > 1e-5 or err_w > 1e-5:
+        raise AssertionError(f"the port's float conv is not float32-accurate on the card "
+                             f"({err_y:.2e}, {err_w:.2e}): TF32 is on")
+
+
+def phase_qat_parity(rng) -> None:
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn import graph as G
+    from yolo_quantization_tpu_torch.tools import qat_check as Q
+    from yolo_quantization_tpu_torch.tools.profile_train import synthetic_batch
+    from yolo_quantization_tpu_torch.train.loss import total_loss
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the port must turn it off itself
+    try:
+        check_tf32_off(rng)
+        net = zoo.yolov3_tiny(classes=5)
+        params = G.params_to_torch(G.init_params_numpy(0, net), "cpu")
+        images, truths = synthetic_batch(rng, 4, 416, 5)
+        x, t = torch.from_numpy(images), torch.from_numpy(truths)
+        # the whole float-train forward and loss (no fake-quant grid to flip;
+        # float32 summation differences of 13 layers add up, so the rules
+        # hold per layer below and the whole forward is held by its loss)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            heads, _ = G.forward(net, G.params_to_torch(G.params_to_numpy(params), dev), x.to(dev),
+                                 Q.MODES["float-train"])
+            out[dev] = ([h.cpu().numpy() for h in heads], float(total_loss(heads, t.to(dev), net)[0]))
+        close = [round(float(np.mean(np.isclose(a, b, rtol=1e-4, atol=1e-5))), 6)
+                 for a, b in zip(out["cuda"][0], out["cpu"][0])]
+        losses = {dev: out[dev][1] for dev in out}
+        Q.check_share("float-train loss", losses["cuda"], losses["cpu"], rtol=1e-4, atol=0.0, share=1.0)
+        log(f"  float-train, whole network: loss {losses['cuda']:.6f} on the card, {losses['cpu']:.6f} on "
+            f"the CPU; heads within rtol 1e-4, atol 1e-5 on {close} of their elements")
+        qs = Q.calibrated_ranges(net, params, x)
+        for name in ("float-train", "ema-qat-train", "qat-eval", "learned"):
+            w = Q.compare_devices(net, params, x, t, Q.MODES[name], qs, "cpu", "cuda")
+            log(f"  {name}: all {len(net.specs)} layers and the input within the rules "
+                f"(smallest close shares: values {w['value']:.6f}, gradients {w['grad']:.6f})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _timed_steps(trainer, x, t, steps: int) -> dict:
+    """ms per step, images/s and peak memory over ``steps`` steps."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer.step(x, t)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss {losses}")
+    return {"ms_per_step": ms, "images_per_s": x.shape[0] * 1e3 / ms,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "losses": losses}
+
+
+def phase_trainer(card: str) -> None:
+    import tempfile
+
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.tools import profile_train
+    from yolo_quantization_tpu_torch.train import checkpoint as ck
+    from yolo_quantization_tpu_torch.train.qat import TrainConfig, Trainer, make_train_step
+
+    rng = np.random.default_rng(6)
+    net = zoo.yolov3_tiny(classes=5)
+    images, truths = profile_train.synthetic_batch(rng, 16, 416, 5)
+    x, t = torch.from_numpy(images).cuda(), torch.from_numpy(truths).cuda()
+    cfg = TrainConfig(burn_in=0, quant_start_step=2, learned_ranges=True, range_warmup=2, batch_size=16)
+    snap = lambda qs: {k: {n: float(v) for n, v in st.items()} for k, st in qs.items()}  # noqa: E731
+    frozen = make_train_step(net, cfg, qat=True, freeze_ranges=True)
+
+    def run_plan():
+        trainer = Trainer(net, cfg, seed=0)
+        plan, losses, ranges = [], [], [snap(trainer.state.quant_state)]
+        for kind in ("float", "float", "ema-qat", "ema-qat", "learned"):
+            losses.append(float(trainer.step(x, t)["loss"]))
+            plan.append(kind)
+            ranges.append(snap(trainer.state.quant_state))
+        trainer.state, m = frozen(trainer.state, x, t)
+        losses.append(float(m["loss"]))
+        plan.append("frozen")
+        ranges.append(snap(trainer.state.quant_state))
+        return trainer, plan, losses, ranges
+
+    trainer, plan, losses, ranges = run_plan()
+    again, _, losses2, ranges2 = run_plan()
+    differ = [f"{i}/{k}" for i, p in trainer.state.params.items() for k, v in p.items()
+              if not torch.equal(again.state.params[i][k], v)]
+    if losses2 != losses or ranges2 != ranges or differ:
+        raise AssertionError(f"training is not deterministic: a second run from the same seed gives "
+                             f"losses {losses2} vs {losses}, params differing at {differ[:6]}")
+    del again
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss in {list(zip(plan, losses))}")
+    if ranges[2] != ranges[0] or ranges[4] == ranges[2] or ranges[6] != ranges[5]:
+        raise AssertionError("ranges: the float steps must leave them, EMA-QAT move them, frozen keep them")
+    moved = max(abs(ranges[5][k][n] - ranges[4][k][n]) for k in ranges[4] for n in ("min", "max"))
+    if not 0 < moved <= cfg.range_lr + 1e-6:
+        raise AssertionError(f"the learned step moved a range by {moved}, not by sign-SGD's {cfg.range_lr}")
+    log("  yolov3-tiny 416 batch 16, steps " + ", ".join(f"{k} {v:.4f}" for k, v in zip(plan, losses)))
+    log("  a second run of these six steps from the same seed gives the same losses, ranges and "
+        "params, bit for bit")
+    with tempfile.TemporaryDirectory() as d:
+        ck.save_checkpoint(d, trainer.state)
+        other = Trainer(net, cfg, seed=1)
+        restored = ck.restore_checkpoint(d, other.state)
+        if (restored.step, restored.seen) != (trainer.state.step, trainer.state.seen):
+            raise AssertionError("checkpoint: step or seen differs")
+        for i, p in trainer.state.params.items():
+            for k, v in p.items():
+                if not torch.equal(restored.params[i][k], v):
+                    raise AssertionError(f"checkpoint: params[{i}][{k}] differs after restore")
+        if snap(restored.quant_state) != snap(trainer.state.quant_state):
+            raise AssertionError("checkpoint: ranges differ after restore")
+        a, b = trainer.state.opt_state.state_dict()["state"], restored.opt_state.state_dict()["state"]
+        if a.keys() != b.keys() or not all(torch.equal(a[k]["momentum_buffer"], b[k]["momentum_buffer"])
+                                           for k in a):
+            raise AssertionError("checkpoint: momentum differs after restore")
+    log(f"  checkpoint at step {trainer.state.step} saved and restored: params, ranges, momentum, "
+        f"step and seen equal")
+    rows = []
+    for phase, start in (("float", 10**9), ("ema-qat", 0)):
+        tr = Trainer(net, TrainConfig(burn_in=0, quant_start_step=start, batch_size=16), seed=0)
+        _timed_steps(tr, x, t, 2)  # cuDNN's algorithm choice, the allocator
+        rows.append(("yolov3-tiny", 16, phase, _timed_steps(tr, x, t, 5)))
+    net3 = zoo.yolov3(classes=80)
+    images3, truths3 = profile_train.synthetic_batch(rng, 8, 416, 80)
+    x3, t3 = torch.from_numpy(images3).cuda(), torch.from_numpy(truths3).cuda()
+    tr3 = Trainer(net3, TrainConfig(burn_in=0, quant_start_step=0, batch_size=8), seed=0)
+    first = _timed_steps(tr3, x3, t3, 2)  # the two EMA-QAT steps; the first builds cuDNN's choice
+    log(f"  yolov3 416 batch 8, two EMA-QAT steps: losses {first['losses']}")
+    rows.append(("yolov3", 8, "ema-qat", _timed_steps(tr3, x3, t3, 3)))
+    for model, batch, phase, r in rows:
+        log(f"  train {model} 416 batch {batch} {phase}: {r['ms_per_step']:.3f} ms/step, "
+            f"{r['images_per_s']:.1f} images/s, peak {r['peak_mib']:.0f} MiB allocated "
+            f"(torch.cuda.max_memory_allocated); losses finite; {card}")
+    del tr, tr3
+    torch.cuda.empty_cache()
+    log("  tools/profile_train.py (yolov3-tiny 416, batch 16, EMA-QAT):")
+    row = profile_train.breakdown(net, 16, 5)
+    log("  " + json.dumps({"card": card, **row}))
+
+
+CLASS_COLORS = [(245, 80, 50), (60, 220, 90), (70, 110, 245)]
+
+
+def make_gate_dataset(root: str, n: int = 24, size: int = 96) -> str:
+    """tests/test_accuracy_gate.py's synthetic dataset: seeded dark images,
+    one large and one small coloured box each, JPEG and darknet labels."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    os.makedirs(f"{root}/images", exist_ok=True)
+    os.makedirs(f"{root}/labels", exist_ok=True)
+    paths = []
+    for i in range(n):
+        im = (rng.uniform(0, 0.22, (size, size, 3)) * 255).astype(np.uint8)
+        labels = []
+
+        def put_box(w, h, cls):
+            x = rng.uniform(w / 2, 1 - w / 2)
+            y = rng.uniform(h / 2, 1 - h / 2)
+            x0, y0 = int((x - w / 2) * size), int((y - h / 2) * size)
+            x1, y1 = int((x + w / 2) * size), int((y + h / 2) * size)
+            im[y0:y1, x0:x1] = CLASS_COLORS[cls]
+            labels.append(f"{cls} {x:.4f} {y:.4f} {w:.4f} {h:.4f}")
+
+        put_box(rng.uniform(0.68, 0.85), rng.uniform(0.68, 0.85), int(rng.integers(3)))
+        put_box(rng.uniform(0.16, 0.24), rng.uniform(0.16, 0.24), int(rng.integers(3)))
+        p = f"{root}/images/img_{i}.jpg"
+        Image.fromarray(im).save(p, quality=97)
+        with open(f"{root}/labels/img_{i}.txt", "w") as f:
+            f.write("\n".join(labels) + "\n")
+        paths.append(p)
+    list_file = f"{root}/list.txt"
+    with open(list_file, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return list_file
+
+
+def phase_accuracy_gate(Engine, counters, device=None) -> None:
+    """The gate on ``device`` (the GPU by default; the engines and the
+    trainer raise where there is none)."""
+    import dataclasses
+    import tempfile
+
+    from yolo_quantization_tpu_torch.data.loader import BatchLoader
+    from yolo_quantization_tpu_torch.data.voc import AugmentConfig, DetectionDataset
+    from yolo_quantization_tpu_torch.eval.f1 import f1_sweep
+    from yolo_quantization_tpu_torch.infer.convert import convert
+    from yolo_quantization_tpu_torch.infer.float_engine import FloatEngine, QatSimEngine
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn.graph import YoloSpec, params_to_numpy, quant_state_to_numpy
+    from yolo_quantization_tpu_torch.train.qat import TrainConfig, Trainer
+
+    steps = 800
+    net = zoo.yolov3_tiny(classes=3, width=96, height=96)
+    std = ((10, 14), (23, 27), (37, 58), (81, 82), (135, 169), (344, 319))
+    net = dataclasses.replace(net, specs=tuple(
+        dataclasses.replace(s, anchors=std) if isinstance(s, YoloSpec) else s for s in net.specs))
+    cfg = TrainConfig(learning_rate=1e-3, burn_in=20, quant_start_step=steps * 2 // 5,
+                      max_batches=steps, batch_size=4)
+    with tempfile.TemporaryDirectory() as root:
+        list_file = make_gate_dataset(root)
+        trainer = Trainer(net, cfg, seed=3, device=device)
+        ds = DetectionDataset(list_file, 96, 96, augment=True,
+                              aug_cfg=AugmentConfig(jitter=0.08, hue=0.02, saturation=1.1, exposure=1.1))
+        loader = BatchLoader(ds, cfg.batch_size, workers=2, pin_memory=trainer.device.type == "cuda")
+        t0 = time.perf_counter()
+        losses = []
+        try:
+            for _ in range(steps):
+                images, truths = loader.next()
+                losses.append(trainer.step(images, truths)["loss"])
+        finally:
+            loader.close()
+        losses = torch.stack(losses).cpu().numpy()
+        train_s = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            raise AssertionError("non-finite loss in the gate's training")
+        log(f"  {steps} steps in {train_s:.1f} s (float to step {cfg.quant_start_step}, then EMA-QAT); "
+            f"loss {losses[0]:.3f} -> {losses[-20:].mean():.3f} (mean of the last 20)")
+        state = trainer.state
+        best = lambda rows: max(rows, key=lambda r: r.f1)  # noqa: E731
+        float_best = best(f1_sweep(FloatEngine(net, state.params, max_det=64, device=device), list_file))
+        qat_best = best(f1_sweep(QatSimEngine(net, state.params, state.quant_state, max_det=64,
+                                              device=device), list_file))
+        program = convert(net, params_to_numpy(state.params), quant_state_to_numpy(state.quant_state))
+        engine = Engine(program, max_det=64, device=device)
+        reset_counts(*counters)  # the integer side of this path: K1 only
+        int_best = best(f1_sweep(engine, list_file))
+        launches = tuple(c.launches for c in counters)
+    log(f"  F1: float {float_best.f1:.2f} (thresh {float_best.thresh}), QAT-sim {qat_best.f1:.2f}, "
+        f"integer {int_best.f1:.2f} (thresh {int_best.thresh}); (K1, K2, shortcut) launches {launches}")
+    if launches[0] == 0 or launches[1:] != (0, 0):
+        raise AssertionError(f"the integer engine's F1 sweep launched {launches}, not K1 alone")
+    if float_best.f1 < 60.0:
+        raise AssertionError(f"the float engine did not learn the task (F1 {float_best.f1:.2f} < 60)")
+    if int_best.f1 < qat_best.f1 - 0.5:
+        raise AssertionError(f"integer F1 {int_best.f1:.2f} < QAT-sim {qat_best.f1:.2f} - 0.5")
+    if int_best.f1 < float_best.f1 - 2.5:
+        raise AssertionError(f"integer F1 {int_best.f1:.2f} < float {float_best.f1:.2f} - 2.5")
+    log("  the three bands hold: float >= 60, integer >= QAT-sim - 0.5, integer >= float - 2.5")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
@@ -697,6 +994,13 @@ def main(argv: list[str]) -> int:
 
     log("phase 9: timings")
     k1, k2, k3, sc = timings.time_all(engines, probe_results, card, rng)
+
+    log("phase 10: QAT forward and backward, GPU vs CPU")
+    phase_qat_parity(rng)
+    log("phase 11: the Trainer (yolov3-tiny 416 batch 16; yolov3 416 batch 8)")
+    phase_trainer(card)
+    log("phase 12: the synthetic accuracy gate through the port (QAT -> convert -> K1)")
+    phase_accuracy_gate(Engine, counters)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -11,10 +11,15 @@ and yolo decode + top-k run on the device before the host gets the result.
 
 Coverage: qconv (stride 1 and 2, any weights), maxpool, upsample, route
 (with requant), the integer shortcut (int8 operands; linear, leaky, relu,
-relu6), yolo: yolov3-tiny and yolov3.  The options ``use_s2d``,
-``dynamic_input``, ``exact_leaky`` and ``carrier="int16"``; flip TTA and
-``at_size``.  Every other layer kind, and a shortcut with another
-activation, raises ``NotImplementedError`` naming its ROADMAP item.
+relu6), yolo; and the float kinds of mixed graphs (per-layer quantized=0):
+the float conv, the float -> quant boundary before a quantized conv, the
+float maxpool, the float route and shortcut, and the dequant -> add ->
+requant shortcut for other activations.  The options ``use_s2d``,
+``dynamic_input``, ``exact_leaky``, ``carrier="int16"`` and
+``fuse_pool=False`` (each planned conv+pool as the conv kernel then the
+integer pool, so every layer keeps its own output); flip TTA and
+``at_size``.  The ``simple`` kind (the yolov2/yolov1 float layers) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,12 +43,7 @@ from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut
 from yolo_quantization_tpu_torch.ops.qconv import ACTIVATION_BY_NAME
 from yolo_quantization_tpu_torch.ops.shortcut import shortcut_params
 
-_KIND_ROADMAP = {
-    "shortcut_f32": "ROADMAP queue 1.6 (float layers)",
-    "fconv": "ROADMAP queue 1.6 (float layers)",
-    "route_f32": "ROADMAP queue 1.6 (float layers)",
-    "simple": "ROADMAP queue 1.6 (float layers)",
-}
+_KIND_ROADMAP = {"simple": "ROADMAP queue 1.8 (the yolov2/yolov1 float layers)"}
 _DYNAMIC_INGREDIENTS = ("bias_f", "wsum_i32", "w_scale", "out_scale_f")
 
 
@@ -163,12 +163,15 @@ def fusion_plan(program: IntProgram) -> set[int]:
 def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tensor]]:
     """The program arrays the forward reads, as tensors on ``device``: each
     conv's weights, bias, m and weight zero points, the s2d block kernel
-    where the converter made one, and layer 0's ``dynamic_input``
-    ingredients.  On CUDA each conv also carries its weights packed for the
-    kernels."""
+    where the converter made one, layer 0's ``dynamic_input`` ingredients,
+    and each float conv's folded float32 weights and bias.  On CUDA each
+    quantized conv also carries its weights packed for the kernels."""
     device = torch.device(device)
     out: dict[int, dict[str, torch.Tensor]] = {}
     for i, c in enumerate(program.cfg):
+        if c.kind == "fconv":
+            out[i] = {name: torch.from_numpy(np.ascontiguousarray(program.arrays[i][name])).to(device)
+                      for name in ("w_f32", "bias_f32")}
         if c.kind != "qconv":
             continue
         a = program.arrays[i]
@@ -187,14 +190,17 @@ def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tens
 
 def build_forward(program: IntProgram, return_outputs: bool = False, *,
                   use_s2d: bool = False, carrier: str = "int8",
-                  dynamic_input: bool = False, exact_leaky: bool = False):
+                  dynamic_input: bool = False, exact_leaky: bool = False,
+                  fuse_pool: bool = True):
     """Return fn(arrays, x) -> heads, or (heads, per_layer_outputs) with
     ``return_outputs``.  ``arrays`` is ``device_arrays(program, device)``;
     x is a float32 [0,1] or uint8 NHWC batch on the same device.
 
     Layers in the conv+pool fusion plan emit the pooled tensor, and the
-    fused pool's slot repeats it (the pre-pool tensor never exists).  With
-    ``use_s2d`` every conv the converter marked ``s2d_pool`` runs the s2d
+    fused pool's slot repeats it (the pre-pool tensor never exists);
+    ``fuse_pool=False`` runs them as the conv then the integer pool, the
+    reference's XLA layout, where every slot holds its own layer's output.
+    With ``use_s2d`` every conv the converter marked ``s2d_pool`` runs the s2d
     stem kernel instead, and its slot holds the pooled tensor likewise.
     ``dynamic_input`` quantizes the input per image and rebuilds layer 0's
     bias and m per image; ``exact_leaky`` is darknet's double-rounded leaky;
@@ -219,28 +225,28 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
     for c in cfg:
         if c.kind in _KIND_ROADMAP:
             _unsupported(f"layer kind {c.kind!r}", _KIND_ROADMAP[c.kind])
-        if c.kind == "shortcut" and c.spec.activation not in ACTIVATION_BY_NAME:
-            _unsupported(f"a shortcut with activation {c.spec.activation!r}",
-                         "ROADMAP queue 1.6 (float layers)")
 
-    fused = fusion_plan(program)
+    fused = fusion_plan(program) if fuse_pool else set()
     s2d = {i for i, c in enumerate(cfg) if c.s2d_pool} if use_s2d else set()
     # per-layer scalars stay host ints: reading them from device would sync
     x_zp = {i: int(program.arrays[i]["x_zp"]) for i, c in enumerate(cfg) if c.kind == "qconv"}
     k_elems0 = int(np.prod(program.arrays[0]["w_i8"].shape[:3])) if dynamic_input else 0
     # each integer shortcut's float32 constants, from float64 on the host
+    # (the kernel takes the epilogue's activations; others run dequant ->
+    # float add -> requant)
     shortcuts = {
         i: shortcut_params(*c.in_scales, c.out_scale, c.out_zp, c.spec.activation)
-        for i, c in enumerate(cfg) if c.kind == "shortcut"
+        for i, c in enumerate(cfg)
+        if c.kind == "shortcut" and c.spec.activation in ACTIVATION_BY_NAME
     }
 
     def conv(i, c, a, x, zp, bias, m):
         s = c.spec
         if x.dtype != torch.int8:
-            raise NotImplementedError(
-                f"layer {i}: a quantized conv after a float layer is not "
-                "ported yet (ROADMAP queue 1.6)"
-            )
+            # float -> quant boundary (mixed graphs): quantize the input
+            # with the QAT-tracked boundary range
+            qp = c.in_scales[0]
+            x = _quantize_input(x, qp[0], qp[1])
         if i in s2d:
             return cuda_s2d.s2d_conv_phase_max_cuda(
                 x, a["w_s2d"], bias, m, zp, act=c.act, out_zp_static=int(c.out_zp),
@@ -284,8 +290,19 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 skip_next = i in fused or i in s2d
                 if c.quant_stop:
                     y = _dequant_i8(y, c.out_scale, c.out_zp)
+            elif c.kind == "fconv":
+                # float conv (per-layer quantized=0)
+                a = arrays[i]
+                if x.dtype == torch.int8:
+                    qp = c.in_scales[0]
+                    x = _dequant_i8(x, qp[0], qp[1])
+                y = L.conv2d(x, a["w_f32"], s.stride, s.pad)
+                y = L.activate(y + a["bias_f32"].reshape(1, 1, 1, -1), s.activation).contiguous()
             elif c.kind == "maxpool":
-                y = L.maxpool_u8(x, s.size, s.stride, s.padding)
+                if x.dtype == torch.int8:
+                    y = L.maxpool_u8(x, s.size, s.stride, s.padding)
+                else:
+                    y = L.maxpool(x, s.size, s.stride, s.padding).contiguous()
             elif c.kind == "upsample":
                 y = L.upsample_nearest(x, s.stride)
             elif c.kind == "route":
@@ -296,12 +313,28 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                         t = _requant_i8(t, ratio, zp_in, c.out_zp)
                     parts.append(t)
                 y = torch.cat(parts, dim=-1)
-            elif c.kind == "shortcut":
+            elif c.kind == "route_f32":
+                parts = []
+                for (j, qp) in zip(s.layers, c.branches):
+                    t = outputs[j]
+                    if t.dtype == torch.int8:
+                        t = _dequant_i8(t, qp[0], qp[1])
+                    parts.append(t)
+                y = torch.cat(parts, dim=-1)
+            elif c.kind in ("shortcut", "shortcut_f32"):
                 skip = outputs[s.index]
-                if x.dtype != torch.int8 or skip.dtype != torch.int8:
-                    _unsupported(f"layer {i}: a shortcut with a float operand",
-                                 "ROADMAP queue 1.6 (float layers)")
-                y = cuda_shortcut.int_shortcut_cuda(x, skip, shortcuts[i])
+                if (c.kind == "shortcut" and x.dtype == torch.int8 and skip.dtype == torch.int8
+                        and i in shortcuts):
+                    y = cuda_shortcut.int_shortcut_cuda(x, skip, shortcuts[i])
+                else:
+                    # dequant -> float add + activation -> requant (or stay
+                    # float for shortcut_f32)
+                    qp_x, qp_k = c.in_scales
+                    fx = _dequant_i8(x, qp_x[0], qp_x[1]) if x.dtype == torch.int8 else x
+                    fk = _dequant_i8(skip, qp_k[0], qp_k[1]) if skip.dtype == torch.int8 else skip
+                    y = L.activate(fx + fk, s.activation)
+                    if c.kind == "shortcut":
+                        y = _quantize_input(y, c.out_scale, c.out_zp)
             elif c.kind == "yolo":
                 if x.dtype == torch.int8:
                     # quantized pre-head conv without quant_stop
@@ -331,7 +364,7 @@ class Engine:
     def __init__(self, program: IntProgram, max_det: int = 256, device=None,
                  carrier: str = "int8", use_s2d: bool = False,
                  dynamic_input: bool = False, approx_topk: bool = False,
-                 exact_leaky: bool = False, arrays=None):
+                 exact_leaky: bool = False, fuse_pool: bool = True, arrays=None):
         if approx_topk:
             _unsupported("approx_topk", "ROADMAP queue 1.4")
         if device is None:
@@ -345,8 +378,8 @@ class Engine:
         self.program = program
         self.max_det = max_det
         self.device = torch.device(device)
-        self.options = dict(use_s2d=use_s2d, carrier=carrier,
-                            dynamic_input=dynamic_input, exact_leaky=exact_leaky)
+        self.options = dict(use_s2d=use_s2d, carrier=carrier, dynamic_input=dynamic_input,
+                            exact_leaky=exact_leaky, fuse_pool=fuse_pool)
         self._fwd = build_forward(program, **self.options)
         self._fwd_all = build_forward(program, return_outputs=True, **self.options)
         # ``arrays``: device arrays to share (the at_size cache)

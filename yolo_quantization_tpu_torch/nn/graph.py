@@ -1,9 +1,16 @@
-"""Declarative network graph: layer specs, shape inference, numpy init.
+"""Declarative network graph: layer specs, shape inference, numpy init and
+the float / QAT forward.
 
-The jax-free part of ``yolo_quantization_tpu/nn/graph.py``: the 21 ``*Spec``
+The counterpart of ``yolo_quantization_tpu/nn/graph.py``: the 21 ``*Spec``
 dataclasses with identical field names and defaults, ``NetworkDef`` with its
-static shape and domain inference, and the numpy parameter / quant-state
-initializers.  The QAT ``forward`` is not ported yet (ROADMAP queue 1.6).
+static shape and domain inference, the numpy parameter / quant-state
+initializers, and ``forward`` in every training and evaluation mode over a
+functional parameter layout: ``params[i]`` holds layer i's tensors under the
+reference's keys (``w`` HWIO, ``bias``, ``gamma``, ``mean``, ``var``) and
+``quant_state`` maps ``input`` / ``act_i`` / ``in_i`` to ``{min, max}``
+0-d tensors.  ``params_to_torch`` and ``params_to_numpy`` (and the pair for
+the quant state) carry them to and from numpy, which is how weights cross
+between this package and the JAX one and how ``convert`` reads them.
 """
 
 from __future__ import annotations
@@ -12,6 +19,16 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+import torch
+
+from yolo_quantization_tpu_torch.core.quant import (
+    ema_update,
+    fake_quant,
+    fake_quant_learned,
+    fake_quant_per_channel,
+    fake_quant_symmetric_per_channel,
+)
+from yolo_quantization_tpu_torch.nn import layers as L
 
 
 @dataclass(frozen=True)
@@ -366,3 +383,273 @@ def init_quant_state(
         elif isinstance(s, ShortcutSpec):
             qs[f"act_{i}"] = {"min": np.float32(0.0), "max": np.float32(0.0)}
     return qs
+
+
+# ---------------------------------------------------------------------------
+# Parameters and quant state as tensors
+# ---------------------------------------------------------------------------
+
+TRAINABLE = ("w", "bias", "gamma")  # mean/var are BN rolling statistics
+
+
+def params_to_torch(params_np, device, requires_grad: bool = False) -> dict[int, dict[str, torch.Tensor]]:
+    """numpy (or any array) params -> float32 tensors on ``device``; with
+    ``requires_grad`` the trainable ones (w, bias, gamma) are leaves that
+    take gradients."""
+    out = {}
+    for i, p in params_np.items():
+        out[i] = {}
+        for k, v in p.items():
+            t = torch.tensor(np.asarray(v, np.float32), device=device)
+            out[i][k] = t.requires_grad_(requires_grad and k in TRAINABLE)
+    return out
+
+
+def params_to_numpy(params_t) -> dict[int, dict[str, np.ndarray]]:
+    """Copies (never views of the live tensors, which the optimizer updates
+    in place)."""
+    return {i: {k: v.detach().cpu().numpy().copy() for k, v in p.items()} for i, p in params_t.items()}
+
+
+def quant_state_to_torch(qs_np, device) -> dict[str, dict[str, torch.Tensor]]:
+    """Ranges -> 0-d float32 tensors on ``device``."""
+    return {k: {n: torch.tensor(float(np.float32(v)), dtype=torch.float32, device=device)
+                for n, v in st.items()} for k, st in qs_np.items()}
+
+
+def quant_state_to_numpy(qs_t) -> dict[str, dict[str, np.float32]]:
+    return {k: {n: np.float32(v.detach().cpu().numpy()) for n, v in st.items()}
+            for k, st in qs_t.items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ForwardMode:
+    train: bool = False        # BN batch stats (+ stats aux out)
+    qat: bool = False          # fake-quant weights + activations
+    update_ranges: bool = False  # EMA-update quant ranges (training only)
+    symmetric_w: bool = True   # weight fake-quant scheme; must match the
+                               # convert(symmetric_weights=...) used at export
+    # conv operand dtype: "float32" (TF32 off) or "bfloat16" (float32
+    # accumulation and outputs; params stay float32)
+    compute_dtype: str = "float32"
+    # activation-range statistic fed to the EMA tracker: "minmax" (raw batch
+    # extremes) or "percentile" / "percentile:<p>" (p% per tail, 0.1 by
+    # default, over a strided subsample)
+    range_stat: str = "minmax"
+    # learnable ranges: fake-quant passes gradients to min/max and the train
+    # step moves them by sign-SGD
+    learned_ranges: bool = False
+
+
+def _batch_range(y: torch.Tensor, stat: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch activation range for the EMA tracker (no gradient).
+
+    "minmax": raw extremes.  "percentile[:p]": the p and 100-p percentiles
+    (linear interpolation, the reference's float32 arithmetic) of every
+    (n // 65536)-th element.
+    """
+    with torch.profiler.record_function("range_stats"):
+        return _batch_range_stat(y.detach(), stat)
+
+
+def _batch_range_stat(y: torch.Tensor, stat: str) -> tuple[torch.Tensor, torch.Tensor]:
+    if stat == "minmax":
+        return torch.amin(y), torch.amax(y)
+    if stat.startswith("percentile"):
+        tail = float(stat.split(":", 1)[1]) if ":" in stat else 0.1
+        flat = y.reshape(-1)
+        step = max(flat.shape[0] // 65536, 1)
+        sub = torch.sort(flat[::step].to(torch.float32)).values
+        n = sub.shape[0]
+        # the rank arithmetic in float32, as the reference's quantile does
+        q = np.asarray([tail, 100.0 - tail], np.float32) / np.float32(100.0)
+        q = q * np.float32(n - 1)
+        low, high = np.floor(q), np.ceil(q)
+        hw = q - low
+        lw = np.float32(1.0) - hw
+        low = np.clip(low, 0, n - 1).astype(np.int64)
+        high = np.clip(high, 0, n - 1).astype(np.int64)
+        out = [sub[int(lo_)] * float(lw_) + sub[int(hi_)] * float(hw_)
+               for lo_, hi_, lw_, hw_ in zip(low, high, lw, hw)]
+        return out[0], out[1]
+    raise ValueError(f"unknown range_stat {stat!r}")
+
+
+def _act_fq(mode: ForwardMode):
+    return fake_quant_learned if mode.learned_ranges else fake_quant
+
+
+def _track(x: torch.Tensor, st, mode: ForwardMode, qs, key: str, stat: str | None = None):
+    """Fake-quant x with the range ``st`` (EMA-updated first when the mode
+    tracks ranges, the update written back to ``qs[key]``)."""
+    lo, hi = st["min"], st["max"]
+    if mode.update_ranges:
+        lo, hi = ema_update(lo, hi, *_batch_range(x, stat or mode.range_stat))
+        qs[key] = {"min": lo, "max": hi}
+    return _act_fq(mode)(x, lo, hi)
+
+
+# clamp-family activations that fold into the fake-quant clamp exactly
+_FOLDABLE = {"relu6": (0.0, 6.0), "relu": (0.0, float("inf"))}
+
+
+def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode: ForwardMode,
+                  act_state: dict[str, torch.Tensor] | None):
+    """One conv layer in any mode: (y, bn_stats | None, new_act_state | None).
+
+    QAT: batch statistics from a float conv, BN folded into the weights with
+    them, the folded weights fake-quantized per output channel, the conv,
+    the folded bias, the activation, and the activation's fake-quant with
+    its tracked range.  In the float phase the stats conv is the layer conv
+    (per-channel scaling commutes with the contraction): one conv and a
+    per-channel scale and shift.  relu6 and relu fold into the fake-quant
+    clamp (their ranges lie inside the activation's bounds, so the clamp and
+    the straight-through gate reproduce them, values and gradients).
+    """
+    quantizing = mode.qat and s.quantized
+    bn_stats = None
+    if s.batch_normalize and mode.train and not quantizing:
+        pre = L.conv2d(x, p["w"], s.stride, s.pad, mode.compute_dtype)
+        mean, var = L.batch_stats(pre)
+        bn_stats = (mean, var)
+        inv, bias = L.bn_inference_scale_bias(p["gamma"], p["bias"], mean, var)
+        y = pre * inv.reshape(1, 1, 1, -1) + bias.reshape(1, 1, 1, -1)
+        return L.activate(y, s.activation), bn_stats, act_state
+
+    if s.batch_normalize:
+        if mode.train:
+            pre = L.conv2d(x, p["w"], s.stride, s.pad, mode.compute_dtype)
+            mean, var = L.batch_stats(pre)
+            bn_stats = (mean, var)
+        else:
+            mean, var = p["mean"], p["var"]
+        w_folded, bias = L.fold_bn_into_weights(p["w"], None, p["gamma"], p["bias"], mean, var)
+    else:
+        w_folded, bias = p["w"], p["bias"]
+
+    if quantizing:
+        if mode.symmetric_w:
+            w_used = fake_quant_symmetric_per_channel(w_folded)
+        else:
+            wd = w_folded.detach()
+            w_used = fake_quant_per_channel(w_folded, torch.amin(wd, dim=(0, 1, 2)),
+                                            torch.amax(wd, dim=(0, 1, 2)))
+    else:
+        w_used = w_folded
+
+    y = L.conv2d(x, w_used, s.stride, s.pad, mode.compute_dtype)
+    y = y + bias.reshape(1, 1, 1, -1)
+
+    fold_bounds = _FOLDABLE.get(s.activation) if quantizing and act_state is not None else None
+    if fold_bounds is None:
+        y = L.activate(y, s.activation)
+
+    new_state = act_state
+    if quantizing and act_state is not None:
+        lo, hi = act_state["min"], act_state["max"]
+        if mode.update_ranges:
+            # heads (quant_stop) always track raw extremes: their strongest
+            # responses are the detections
+            stat = "minmax" if s.quant_stop else mode.range_stat
+            blo, bhi = _batch_range(y, stat)
+            if fold_bounds is not None:
+                blo, bhi = L.clip(blo, *fold_bounds), L.clip(bhi, *fold_bounds)
+            lo, hi = ema_update(lo, hi, blo, bhi)
+            new_state = {"min": lo, "max": hi}
+        if fold_bounds is not None:
+            # identity for every range this trainer produces; exact again
+            # for a loaded range outside the activation's bounds
+            lo, hi = L.clip(lo, *fold_bounds), L.clip(hi, *fold_bounds)
+        y = _act_fq(mode)(y, lo, hi)
+    return y, bn_stats, new_state
+
+
+def layer_forward(net: NetworkDef, i: int, params, x: torch.Tensor, outputs: list[torch.Tensor],
+                  mode: ForwardMode, qs: dict | None, bn_stats: dict) -> torch.Tensor:
+    """Layer i of ``forward``: its output from its input ``x`` and the earlier
+    layers' ``outputs`` (routes and shortcuts read them).  Range updates go
+    into ``qs`` (a dict the caller owns), batch statistics into
+    ``bn_stats``.  Running a layer on given inputs is how two forwards are
+    compared layer by layer."""
+    s = net.specs[i]
+    key = f"act_{i}"
+    if isinstance(s, ConvSpec):
+        in_key = f"in_{i}"
+        if mode.qat and in_key in qs:
+            # float -> quant boundary: fake-quant the input
+            x = _track(x, qs[in_key], mode, qs, in_key)
+        y, stats, new_state = _conv_forward(s, params[i], x, mode, qs.get(key) if qs else None)
+        if stats is not None:
+            bn_stats[i] = stats
+        if qs is not None and new_state is not None and key in qs:
+            qs[key] = new_state
+        return y
+    if isinstance(s, MaxPoolSpec):
+        return L.maxpool(x, s.size, s.stride, s.padding)
+    if isinstance(s, UpsampleSpec):
+        return L.upsample_nearest(x, s.stride)
+    if isinstance(s, RouteSpec):
+        y = L.route_concat([outputs[j] for j in s.layers])
+        return _track(y, qs[key], mode, qs, key) if mode.qat and key in qs else y
+    if isinstance(s, ShortcutSpec):
+        y = L.activate(L.shortcut_add(x, outputs[s.index]), s.activation)
+        return _track(y, qs[key], mode, qs, key) if mode.qat and key in qs else y
+    if isinstance(s, YoloSpec):
+        return x  # decoded separately (eval/detect.py)
+    if isinstance(s, SIMPLE_SPECS):
+        raise NotImplementedError(
+            f"layer {i} ({type(s).__name__}): the extended float layers belong to the "
+            "yolov2/yolov1 models and are not ported yet (ROADMAP queue 1.8)")
+    raise TypeError(f"unknown spec {s}")
+
+
+def input_forward(x: torch.Tensor, mode: ForwardMode, qs: dict | None) -> torch.Tensor:
+    """The network input's fake-quant in QAT modes (its range EMA-updated
+    into ``qs`` when the mode tracks ranges); the identity otherwise."""
+    if not mode.qat:
+        return x
+    if qs is None:
+        raise ValueError("QAT forward requires quant_state")
+    st = qs["input"]
+    lo, hi = st["min"], st["max"]
+    if mode.update_ranges:
+        xd = x.detach()
+        lo, hi = ema_update(lo, hi, torch.amin(xd), torch.amax(xd))
+        qs["input"] = {"min": lo, "max": hi}
+    return _act_fq(mode)(x, lo, hi)
+
+
+def forward(net: NetworkDef, params: dict[int, dict[str, torch.Tensor]], x: torch.Tensor,
+            mode: ForwardMode = ForwardMode(),
+            quant_state: dict[str, dict[str, torch.Tensor]] | None = None,
+            return_outputs: bool = False):
+    """Run the graph.  Returns (head_outputs, aux).
+
+    head_outputs: the raw float NHWC tensor of every YoloSpec, channels
+    A*(4+1+classes).  aux: {"bn_stats": {i: (mean, var)}, "quant_state":
+    the (EMA-updated) ranges}, and with ``return_outputs`` also "input" (the
+    fake-quantized input) and "outputs" (every layer's output).  The
+    extended float layers of the yolov2 and yolov1 models raise (ROADMAP
+    queue 1.8).
+    """
+    qs = dict(quant_state) if quant_state is not None else None
+    x = input_forward(x, mode, qs)
+    aux = {"input": x} if return_outputs else {}
+    outputs: list[torch.Tensor] = []
+    heads: list[torch.Tensor] = []
+    bn_stats: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+    for i, s in enumerate(net.specs):
+        y = layer_forward(net, i, params, x, outputs, mode, qs, bn_stats)
+        if isinstance(s, YoloSpec):
+            heads.append(y)
+        outputs.append(y)
+        x = y
+    aux.update(bn_stats=bn_stats, quant_state=qs)
+    if return_outputs:
+        aux["outputs"] = outputs
+    return heads, aux
