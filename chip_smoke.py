@@ -21,8 +21,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      engine's options; fused pool where the plan has it; plus edge cases
      (Co 30/130, Cin 3/6/16, M off every tile, pooled partial tiles, every
      block tile of the launch table, K=1, every activation, ties, uint8 in).
-     Then stride 2: yolov3's five stride-2 convs at batch 2 and 16 and with
-     each option, odd maps (13 -> 7, 9x11), Cin 3 and 6, every block tile;
+     The yolov2 family's shapes (GEMM K 4,608 / 9,216 / 11,520 at 13x13, the
+     passthrough 1x1, the 125-channel head) at batch 2 and 16.  Then stride
+     2: yolov3's five stride-2 convs at batch 2 and 16 and with each option,
+     odd maps (13 -> 7, 9x11), Cin 3 and 6, every block tile;
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
      batch 2, every activation, per-image zp/bias/m, exact_leaky, and at
      batch 16 (the timed shapes) plain and with the per-image options;
@@ -74,7 +76,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      port on the card: 800 steps at 96x96 (float, then QAT), convert, and
      the integer Engine (K1, launches counted) against the fake-quant
      simulation and the float engine: float F1 >= 60, integer >= QAT-sim -
-     0.5, integer >= float - 2.5.
+     0.5, integer >= float - 2.5;
+ 13. (run after phase 8) yolov2-tiny (9 K1 launches a forward) and yolov2
+     (23, the reorg passthrough as a float route into conv 29), 416, 20
+     classes, float32 and uint8 batches of 4: every layer's codes equal to
+     the CPU engine's (16 and 32 layers; the region layer's floats within
+     rtol 1e-5, atol 1e-6), predict, flip TTA and at_size(320) agree; the
+     float programs of yolov1-tiny (448) and darknet19 (224) through the
+     Engine and the float forward, GPU vs CPU within float32 tolerance;
+ 13b. the darknet deployment path: yolov2-tiny's QAT program written with
+     save_darknet_weights, its cfg (held as text here) parsed, the file
+     loaded with its layout auto-detected, converted, served on K1 (codes
+     equal to the in-memory program's at every layer, a second save
+     byte-identical), then a Server with the (1, 4, 16) ladder (9 K1
+     launches a batch);
+ phase 10 also holds yolov2-tiny (416, batch 4) layer by layer, the region
+     layer and loss included; phase 11 also times an EMA-QAT yolov2-tiny
+     step (416, batch 16), whose steps repeat bit for bit; phase 9 also times
+     the yolov2 forwards and K1 on their new shapes;
+ 14. tests/test_accuracy_gate_v2_v1.py's region gate through the port:
+     yolov2-tiny at 96x96, 900 steps with the anchor-prior warm-up crossed,
+     convert, K1: float F1 >= 60, integer >= QAT-sim - 0.5.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -276,6 +298,22 @@ def conv_cases():
     return [case + (1,) for case in cases] + stride2_cases()
 
 
+def v2_conv_cases():
+    """K1 on the yolov2 family's shapes (GEMM K 4,608 / 9,216 / 11,520 at
+    13x13, the passthrough 1x1 at 26x26, the 125-channel head, Co off 16)
+    at batch 2 and 16, in conv_cases' form."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY
+    from yolo_quantization_tpu_torch.tools.kernel_timings import v2_layers
+
+    cases = []
+    for (name, h, w, ci, co, k, pad, act) in v2_layers():
+        for n, variant in ((2, ""), (16, ""), (16, "asym"), (2, "parity")):
+            v_act = ACT_LEAKY if variant == "parity" else act
+            cases.append((f"{name}_b{n}{'_' + variant if variant else ''}", n, h, w, ci, co, k, pad,
+                          v_act, True, False, variant, 1))
+    return cases
+
+
 # K1 at stride 2 (n, h, w, ci, co, k, pad) by loader and by the block tile
 # the launch table gives them on a 132-SM card (as
 # tests/test_torch_qconv.py::STRIDE2_EDGES): the byte gather (Ci 3, 6, 8),
@@ -319,10 +357,10 @@ def stride2_cases():
     return [case + (2,) for case in cases]
 
 
-def phase_k1(cuda_qconv, qconv, rng, errors):
+def phase_k1(cuda_qconv, qconv, rng, errors, cases=None):
     from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
-    cases = conv_cases()
+    cases = conv_cases() if cases is None else cases
     for (name, n, h, w, ci, co, k, pad, act, out_i8, pool, variant, stride) in cases:
         x, wt, bias, m = random_layer(rng, n, h, w, ci, co, k)
         dyn = variant in ("dyn", "all", "all_pow2_m", "parity")
@@ -860,62 +898,77 @@ def make_gate_dataset(root: str, n: int = 24, size: int = 96) -> str:
     return list_file
 
 
-def phase_accuracy_gate(Engine, counters, device=None) -> None:
-    """The gate on ``device`` (the GPU by default; the engines and the
-    trainer raise where there is none)."""
-    import dataclasses
-    import tempfile
-
+def run_gate(Engine, counters, net, steps: int, list_file: str, seen0: int = 0, device=None):
+    """Train ``net`` on the gate's dataset (float to 2/5 of the steps, then
+    EMA-QAT; ``seen0`` images already seen), convert, and sweep F1 over the
+    float engine, the fake-quant simulation and the integer Engine (whose
+    launches are counted).  Returns (float, QAT-sim, integer) best rows and
+    the launches."""
     from yolo_quantization_tpu_torch.data.loader import BatchLoader
     from yolo_quantization_tpu_torch.data.voc import AugmentConfig, DetectionDataset
     from yolo_quantization_tpu_torch.eval.f1 import f1_sweep
     from yolo_quantization_tpu_torch.infer.convert import convert
     from yolo_quantization_tpu_torch.infer.float_engine import FloatEngine, QatSimEngine
-    from yolo_quantization_tpu_torch.models import zoo
-    from yolo_quantization_tpu_torch.nn.graph import YoloSpec, params_to_numpy, quant_state_to_numpy
+    from yolo_quantization_tpu_torch.nn.graph import params_to_numpy, quant_state_to_numpy
     from yolo_quantization_tpu_torch.train.qat import TrainConfig, Trainer
 
-    steps = 800
-    net = zoo.yolov3_tiny(classes=3, width=96, height=96)
-    std = ((10, 14), (23, 27), (37, 58), (81, 82), (135, 169), (344, 319))
-    net = dataclasses.replace(net, specs=tuple(
-        dataclasses.replace(s, anchors=std) if isinstance(s, YoloSpec) else s for s in net.specs))
     cfg = TrainConfig(learning_rate=1e-3, burn_in=20, quant_start_step=steps * 2 // 5,
                       max_batches=steps, batch_size=4)
-    with tempfile.TemporaryDirectory() as root:
-        list_file = make_gate_dataset(root)
-        trainer = Trainer(net, cfg, seed=3, device=device)
-        ds = DetectionDataset(list_file, 96, 96, augment=True,
-                              aug_cfg=AugmentConfig(jitter=0.08, hue=0.02, saturation=1.1, exposure=1.1))
-        loader = BatchLoader(ds, cfg.batch_size, workers=2, pin_memory=trainer.device.type == "cuda")
-        t0 = time.perf_counter()
-        losses = []
-        try:
-            for _ in range(steps):
-                images, truths = loader.next()
-                losses.append(trainer.step(images, truths)["loss"])
-        finally:
-            loader.close()
-        losses = torch.stack(losses).cpu().numpy()
-        train_s = time.perf_counter() - t0
-        if not np.isfinite(losses).all():
-            raise AssertionError("non-finite loss in the gate's training")
-        log(f"  {steps} steps in {train_s:.1f} s (float to step {cfg.quant_start_step}, then EMA-QAT); "
-            f"loss {losses[0]:.3f} -> {losses[-20:].mean():.3f} (mean of the last 20)")
-        state = trainer.state
-        best = lambda rows: max(rows, key=lambda r: r.f1)  # noqa: E731
-        float_best = best(f1_sweep(FloatEngine(net, state.params, max_det=64, device=device), list_file))
-        qat_best = best(f1_sweep(QatSimEngine(net, state.params, state.quant_state, max_det=64,
-                                              device=device), list_file))
-        program = convert(net, params_to_numpy(state.params), quant_state_to_numpy(state.quant_state))
-        engine = Engine(program, max_det=64, device=device)
-        reset_counts(*counters)  # the integer side of this path: K1 only
-        int_best = best(f1_sweep(engine, list_file))
-        launches = tuple(c.launches for c in counters)
+    trainer = Trainer(net, cfg, seed=3, device=device)
+    trainer.state = trainer.state._replace(seen=seen0)
+    ds = DetectionDataset(list_file, net.height, net.width, augment=True,
+                          aug_cfg=AugmentConfig(jitter=0.08, hue=0.02, saturation=1.1, exposure=1.1))
+    loader = BatchLoader(ds, cfg.batch_size, workers=2, pin_memory=trainer.device.type == "cuda")
+    t0 = time.perf_counter()
+    losses = []
+    try:
+        for _ in range(steps):
+            images, truths = loader.next()
+            losses.append(trainer.step(images, truths)["loss"])
+    finally:
+        loader.close()
+    losses = torch.stack(losses).cpu().numpy()
+    train_s = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss in the gate's training")
+    if trainer.state.seen != seen0 + steps * cfg.batch_size:
+        raise AssertionError(f"seen {trainer.state.seen} after {steps} steps from {seen0}")
+    log(f"  {steps} steps in {train_s:.1f} s (float to step {cfg.quant_start_step}, then EMA-QAT; seen "
+        f"{seen0} -> {trainer.state.seen}); loss {losses[0]:.3f} -> {losses[-20:].mean():.3f} (mean of "
+        "the last 20)")
+    state = trainer.state
+    best = lambda rows: max(rows, key=lambda r: r.f1)  # noqa: E731
+    float_best = best(f1_sweep(FloatEngine(net, state.params, max_det=64, device=device), list_file))
+    qat_best = best(f1_sweep(QatSimEngine(net, state.params, state.quant_state, max_det=64,
+                                          device=device), list_file))
+    program = convert(net, params_to_numpy(state.params), quant_state_to_numpy(state.quant_state))
+    engine = Engine(program, max_det=64, device=device)
+    reset_counts(*counters)  # the integer side of this path: K1 only
+    int_best = best(f1_sweep(engine, list_file))
+    launches = tuple(c.launches for c in counters)
     log(f"  F1: float {float_best.f1:.2f} (thresh {float_best.thresh}), QAT-sim {qat_best.f1:.2f}, "
         f"integer {int_best.f1:.2f} (thresh {int_best.thresh}); (K1, K2, shortcut) launches {launches}")
     if launches[0] == 0 or launches[1:] != (0, 0):
         raise AssertionError(f"the integer engine's F1 sweep launched {launches}, not K1 alone")
+    return float_best, qat_best, int_best
+
+
+def phase_accuracy_gate(Engine, counters, device=None) -> None:
+    """The yolov3-tiny gate on ``device`` (the GPU by default; the engines
+    and the trainer raise where there is none)."""
+    import dataclasses
+    import tempfile
+
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn.graph import YoloSpec
+
+    net = zoo.yolov3_tiny(classes=3, width=96, height=96)
+    std = ((10, 14), (23, 27), (37, 58), (81, 82), (135, 169), (344, 319))
+    net = dataclasses.replace(net, specs=tuple(
+        dataclasses.replace(s, anchors=std) if isinstance(s, YoloSpec) else s for s in net.specs))
+    with tempfile.TemporaryDirectory() as root:
+        float_best, qat_best, int_best = run_gate(Engine, counters, net, 800, make_gate_dataset(root),
+                                                  device=device)
     if float_best.f1 < 60.0:
         raise AssertionError(f"the float engine did not learn the task (F1 {float_best.f1:.2f} < 60)")
     if int_best.f1 < qat_best.f1 - 0.5:
@@ -923,6 +976,335 @@ def phase_accuracy_gate(Engine, counters, device=None) -> None:
     if int_best.f1 < float_best.f1 - 2.5:
         raise AssertionError(f"integer F1 {int_best.f1:.2f} < float {float_best.f1:.2f} - 2.5")
     log("  the three bands hold: float >= 60, integer >= QAT-sim - 0.5, integer >= float - 2.5")
+
+
+def make_v2_gate_dataset(root: str, n: int = 24, size: int = 96) -> str:
+    """tests/test_accuracy_gate_v2_v1.py's region-head dataset: seeded dark
+    images with one medium coloured box each, JPEG and darknet labels."""
+    from PIL import Image
+
+    rng = np.random.default_rng(23)
+    os.makedirs(f"{root}/images", exist_ok=True)
+    os.makedirs(f"{root}/labels", exist_ok=True)
+    paths = []
+    for i in range(n):
+        im = (rng.uniform(0, 0.22, (size, size, 3)) * 255).astype(np.uint8)
+        w, h = rng.uniform(0.4, 0.55), rng.uniform(0.4, 0.55)
+        cls = int(rng.integers(3))
+        x, y = rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2)
+        x0, y0 = int((x - w / 2) * size), int((y - h / 2) * size)
+        x1, y1 = int((x + w / 2) * size), int((y + h / 2) * size)
+        im[y0:y1, x0:x1] = CLASS_COLORS[cls]
+        p = f"{root}/images/img_{i}.jpg"
+        Image.fromarray(im).save(p, quality=97)
+        with open(f"{root}/labels/img_{i}.txt", "w") as f:
+            f.write(f"{cls} {x:.4f} {y:.4f} {w:.4f} {h:.4f}\n")
+        paths.append(p)
+    list_file = f"{root}/list.txt"
+    with open(list_file, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return list_file
+
+
+def phase_v2_gate(Engine, counters, device=None, steps: int = 900) -> None:
+    """tests/test_accuracy_gate_v2_v1.py's region gate through the port:
+    yolov2-tiny (3 classes, 96x96, anchors (1.4, 1.4) and (2.8, 2.8) grid
+    units), 900 steps at batch 4 with ``seen`` seeded at 12,800 - 600, so the
+    anchor-prior warm-up runs and ends at step 150; float F1 >= 60 and
+    integer >= QAT-sim - 0.5."""
+    import tempfile
+
+    from yolo_quantization_tpu_torch.models import zoo
+
+    net = zoo.yolov2_tiny(classes=3, width=96, height=96, anchors=((1.4, 1.4), (2.8, 2.8)))
+    with tempfile.TemporaryDirectory() as root:
+        float_best, qat_best, int_best = run_gate(Engine, counters, net, steps, make_v2_gate_dataset(root),
+                                                  seen0=12800 - 150 * 4, device=device)
+    if float_best.f1 < 60.0:
+        raise AssertionError(f"the region head did not learn the task (F1 {float_best.f1:.2f} < 60)")
+    if int_best.f1 < qat_best.f1 - 0.5:
+        raise AssertionError(f"integer F1 {int_best.f1:.2f} < QAT-sim {qat_best.f1:.2f} - 0.5")
+    log("  the bands hold: float >= 60, integer >= QAT-sim - 0.5")
+
+
+# yolov2-tiny-voc.cfg's topology with the quantization fields (20 classes,
+# 416x416): the darknet deployment path reads it as text
+V2_TINY_CFG = """[net]
+batch=64
+subdivisions=8
+width=416
+height=416
+channels=3
+momentum=0.9
+decay=0.0005
+learning_rate=0.001
+burn_in=1000
+max_batches=40200
+policy=steps
+steps=40000,45000
+scales=.1,.1
+start_quantization_step=20000
+""" + "".join(
+    f"[convolutional]\nbatch_normalize=1\nfilters={f}\nsize=3\nstride=1\npad=1\nactivation=leaky\n"
+    f"quantized=1\n\n[maxpool]\nsize=2\nstride={st}\nquantized=1\n\n"
+    for f, st in ((16, 2), (32, 2), (64, 2), (128, 2), (256, 2), (512, 1))
+) + "".join(
+    "[convolutional]\nbatch_normalize=1\nfilters=1024\nsize=3\nstride=1\npad=1\nactivation=leaky\n"
+    "quantized=1\n\n" for _ in range(2)
+) + """[convolutional]
+size=1
+stride=1
+pad=1
+filters=125
+activation=linear
+quantized=1
+quant_stop=1
+
+[region]
+anchors=1.08,1.19, 3.42,4.41, 6.63,11.38, 9.42,5.11, 16.62,10.52
+bias_match=1
+classes=20
+coords=4
+num=5
+softmax=1
+jitter=.2
+rescore=1
+object_scale=5
+noobject_scale=1
+class_scale=1
+coord_scale=1
+absolute=1
+thresh=.6
+random=1
+"""
+
+
+def v2_engine_configs(size: int = 416):
+    """name -> (program, launches per forward (K1, K2, shortcut))."""
+    from yolo_quantization_tpu_torch.models.presets import v2_program, v2_tiny_program
+
+    return {"v2-tiny": (v2_tiny_program(classes=20, size=size, seed=0), (9, 0, 0)),
+            "v2": (v2_program(classes=20, size=size, seed=0), (23, 0, 0))}
+
+
+def compare_layer_outputs(what, net, outs_g, outs_c) -> None:
+    """Codes and the dequantized, reorg and route floats bit for bit; the
+    region layer's logistic and softmax (device math) within DECODE_TOL."""
+    from yolo_quantization_tpu_torch.nn.graph import RegionSpec
+
+    if len(outs_g) != len(outs_c) or len(outs_g) != len(net.specs):
+        raise AssertionError(f"{what}: {len(outs_g)} / {len(outs_c)} layer outputs for {len(net.specs)} layers")
+    for i, (g, c) in enumerate(zip(outs_g, outs_c)):
+        if isinstance(net.specs[i], RegionSpec):
+            np.testing.assert_allclose(g, c, **DECODE_TOL, err_msg=f"{what}: region layer {i}")
+        elif g.dtype != c.dtype or not np.array_equal(g, c):
+            raise AssertionError(f"{what}: layer {i} differs")
+
+
+def phase_v2_engines(Engine, counters, rng, size: int = 416):
+    """yolov2-tiny and yolov2 (416, 20 classes) GPU vs CPU.  Returns the
+    CUDA engines."""
+    x = rng.uniform(0, 1, (4, size, size, 3)).astype(np.float32)
+    x_u8 = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
+    engines = {}
+    for cname, (program, expected) in v2_engine_configs(size).items():
+        t0 = time.perf_counter()
+        gpu, cpu = Engine(program, device="cuda"), Engine(program, device="cpu")
+        engines[cname] = gpu
+        for name, batch in (("float32", x), ("uint8", x_u8)):
+            reset_counts(*counters)
+            heads_g, outs_g = gpu.raw_heads(batch, return_outputs=True)
+            got = tuple(c.launches for c in counters)
+            if got != expected:
+                raise AssertionError(f"{cname}: (K1, K2, shortcut) launches per forward {got}, expected {expected}")
+            heads_c, outs_c = cpu.raw_heads(batch, return_outputs=True)
+            compare_layer_outputs(f"{cname} {name}", program.net, outs_g, outs_c)
+            for g, c in zip(heads_g, heads_c):
+                np.testing.assert_allclose(g, c, **DECODE_TOL)
+            log(f"  {cname} {name} batch of 4: all {len(outs_g)} layer outputs equal to the CPU engine's "
+                f"(the region layer within rtol 1e-5, atol 1e-6); {expected[0]} K1 launches")
+        reset_counts(*counters)
+        dets_g = gpu.predict(x)
+        if tuple(c.launches for c in counters) != expected:
+            raise AssertionError(f"{cname} predict launched {tuple(c.launches for c in counters)}")
+        for a, b in zip(dets_g, cpu.predict(x)):
+            np.testing.assert_allclose(a, b, **DECODE_TOL)
+        boxes, obj, _ = dets_g
+        if not (np.isfinite(boxes).all() and (obj >= 0).all() and (obj <= 1).all()):
+            raise AssertionError(f"{cname} predict: non-finite boxes or objectness outside [0,1]")
+        for a, b in zip(gpu.predict(x[:2], flip=True), cpu.predict(x[:2], flip=True)):
+            np.testing.assert_allclose(a, b, **DECODE_TOL)
+        g320, c320 = gpu.at_size(320), cpu.at_size(320)
+        x320 = rng.uniform(0, 1, (2, 320, 320, 3)).astype(np.float32)
+        compare_layer_outputs(f"{cname} at_size(320)", g320.program.net,
+                              g320.raw_heads(x320, return_outputs=True)[1],
+                              c320.raw_heads(x320, return_outputs=True)[1])
+        for a, b in zip(g320.predict(x320), c320.predict(x320)):
+            np.testing.assert_allclose(a, b, **DECODE_TOL)
+        log(f"  {cname} predict, flip TTA and at_size(320): detections agree with the CPU engine's; "
+            f"at_size(320) layers equal ({time.perf_counter() - t0:.1f} s)")
+    return engines
+
+
+def phase_float_programs(Engine, rng, test_device: str = "cuda") -> None:
+    """yolov1-tiny (448) and darknet19 (224): the float program through the
+    integer Engine and the float forward, GPU against CPU, every layer
+    within float32 tolerance."""
+    from yolo_quantization_tpu_torch.infer.convert import convert
+    from yolo_quantization_tpu_torch.infer.float_engine import FloatEngine
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn import graph as G
+    from yolo_quantization_tpu_torch.tools import qat_check as Q
+
+    for name, net in (("yolov1-tiny", zoo.yolov1_tiny()), ("darknet19", zoo.darknet19())):
+        t0 = time.perf_counter()
+        params = G.init_params_numpy(0, net)
+        program = convert(net, params, G.init_quant_state(net))
+        x = rng.uniform(0, 1, (2, net.height, net.width, 3)).astype(np.float32)
+        outs = [Engine(program, device=dev).raw_heads(x, return_outputs=True)[1]
+                for dev in (test_device, "cpu")]
+        for i, (g, c) in enumerate(zip(*outs)):
+            Q.check_share(f"{name} program layer {i}", g, c, rtol=1e-4, atol=1e-5, share=1.0, scaled=True)
+        fwd = []
+        for dev in (test_device, "cpu"):
+            eng = FloatEngine(net, params, device=dev)
+            with torch.inference_mode():
+                _, aux = G.forward(net, eng.params, torch.from_numpy(x).to(dev), return_outputs=True)
+            fwd.append([o.cpu().numpy() for o in aux["outputs"]])
+        for i, (g, c) in enumerate(zip(*fwd)):
+            Q.check_share(f"{name} float layer {i}", g, c, rtol=1e-4, atol=1e-5, share=1.0, scaled=True)
+        log(f"  {name} ({net.height}x{net.width}) float program through Engine and the float forward: all "
+            f"{len(net.specs)} layers within rtol 1e-4, atol 1e-5 x max(1, |max|) of the CPU "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_darknet_path(Engine, Server, Detection, counters, rng):
+    """The darknet deployment path on the card: yolov2-tiny's QAT program
+    (seeded params, synthetic ranges) written with save_darknet_weights, the
+    cfg parsed from text, the file loaded (layout auto-detected), converted
+    and served through K1.  The in-memory program is converted from the
+    ranges as the file's float32 (scale, zero point) fields hold them; a
+    second save of that state is byte-identical, and the loaded program's
+    codes equal the in-memory program's at every layer.  Returns the
+    server's launches."""
+    import tempfile
+
+    from yolo_quantization_tpu_torch.infer.convert import convert
+    from yolo_quantization_tpu_torch.models import cfg as C
+    from yolo_quantization_tpu_torch.models import darknet_weights as D
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.models.presets import v2_quant_state
+    from yolo_quantization_tpu_torch.nn.graph import init_params_numpy
+
+    t0 = time.perf_counter()
+    net = zoo.yolov2_tiny(classes=20)
+    params = init_params_numpy(0, net)
+    qs = v2_quant_state(net)
+    with tempfile.TemporaryDirectory() as d:
+        first, second = os.path.join(d, "first.weights"), os.path.join(d, "yolov2-tiny-voc.weights")
+        D.save_darknet_weights(first, net, params, qs, seen=32013)
+        held = D.load_darknet_weights(first, net).quant_state
+        program = convert(net, params, held)
+        D.save_darknet_weights(second, net, params, held, seen=32013)
+        with open(first, "rb") as f1, open(second, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("save -> load -> save is not byte-identical")
+        size = os.path.getsize(second)
+        cnet, train_cfg = C.parse_cfg(V2_TINY_CFG)
+        if cnet != net:
+            raise AssertionError("the cfg text does not parse to zoo.yolov2_tiny(classes=20)")
+        ck = D.load_darknet_weights(second, cnet)
+        if ck.seen != 32013 or not ck.raw_quant:
+            raise AssertionError(f"seen {ck.seen}, quantization blocks {bool(ck.raw_quant)}")
+        loaded = convert(cnet, ck.params, ck.quant_state)
+    unsnapped = convert(net, params, qs)
+    moved = sum(int((program.arrays[i]["m"] != unsnapped.arrays[i]["m"]).sum()) for i in program.arrays)
+    eng, ref = Engine(loaded, device="cuda"), Engine(program, device="cpu")
+    x = rng.uniform(0, 1, (4, 416, 416, 3)).astype(np.float32)
+    reset_counts(*counters)
+    _, outs = eng.raw_heads(x, return_outputs=True)
+    if tuple(c.launches for c in counters) != (9, 0, 0):
+        raise AssertionError(f"the loaded program launched {tuple(c.launches for c in counters)}")
+    compare_layer_outputs("darknet path vs the in-memory program", net, outs,
+                          ref.raw_heads(x, return_outputs=True)[1])
+    log(f"  {size} bytes (quantized layout auto-detected), seen 32013, policy {train_cfg.policy}; "
+        f"re-saved byte-identical; all {len(outs)} layers of the loaded program on the card equal the "
+        f"in-memory program's (CPU); {moved} requant multipliers differ by float32 rounding between "
+        f"the float64 ranges and the file's fields ({time.perf_counter() - t0:.1f} s)")
+    return phase_serving(Server, Detection, counters, eng, (9, 0, 0), rng,
+                         [(416, 416), (375, 500), (480, 640), (96, 128), (416, 416), (333, 222),
+                          (600, 400), (256, 256)])
+
+
+def phase_v2_qat_parity(rng, size: int = 416, test_device: str = "cuda") -> None:
+    """yolov2-tiny (416, 20 classes, batch 4), GPU against CPU: the region
+    loss and its gradient from the CPU's head output, then every layer
+    (the region layer included) by tools/qat_check.py's rules in the
+    float-train, EMA-QAT-train and QAT-eval modes, the loss's warm-up on."""
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn import graph as G
+    from yolo_quantization_tpu_torch.tools import qat_check as Q
+    from yolo_quantization_tpu_torch.tools.profile_train import synthetic_batch
+    from yolo_quantization_tpu_torch.train.loss import total_loss
+
+    net = zoo.yolov2_tiny(classes=20, width=size, height=size)
+    params = G.params_to_torch(G.init_params_numpy(0, net), "cpu")
+    images, truths = synthetic_batch(rng, 4, size, 20)
+    x, t = torch.from_numpy(images), torch.from_numpy(truths)
+    with torch.no_grad():
+        heads, _ = G.forward(net, params, x, Q.MODES["float-train"])
+    got = {}
+    for dev in ("cpu", test_device):
+        h = heads[0].detach().to(dev).requires_grad_(True)
+        loss = total_loss([h], t.to(dev), net, seen=12000)[0]
+        loss.backward()
+        got[dev] = (float(loss.detach()), h.grad.cpu())
+    Q.check_share("region loss", got[test_device][0], got["cpu"][0], rtol=1e-5, atol=0.0, share=1.0)
+    Q.check_share("region loss gradient", got[test_device][1], got["cpu"][1], **Q.GRAD_TOL, share=1.0)
+    log(f"  region loss {got[test_device][0]:.6f} on the card, {got['cpu'][0]:.6f} on the CPU; its "
+        "gradient within the gradient rule everywhere")
+    qs = Q.calibrated_ranges(net, params, x)
+    for name in ("float-train", "ema-qat-train", "qat-eval"):
+        w = Q.compare_devices(net, params, x, t, Q.MODES[name], qs, "cpu", test_device, seen=12000)
+        log(f"  yolov2-tiny {name}: all {len(net.specs)} layers and the input within the rules "
+            f"(smallest close shares: values {w['value']:.6f}, gradients {w['grad']:.6f})")
+
+
+def phase_v2_trainer(card: str, size: int = 416, device: str = "cuda") -> None:
+    """An EMA-QAT yolov2-tiny step at 416, batch 16: three steps run twice
+    from one seed must be equal bit for bit; then ms per step, images/s and
+    peak memory over five."""
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.tools.profile_train import synthetic_batch
+    from yolo_quantization_tpu_torch.train.qat import TrainConfig, Trainer
+
+    net = zoo.yolov2_tiny(classes=20, width=size, height=size)
+    images, truths = synthetic_batch(np.random.default_rng(7), 16, size, 20)
+    x, t = torch.from_numpy(images).to(device), torch.from_numpy(truths).to(device)
+    cfg = TrainConfig(burn_in=0, quant_start_step=0, batch_size=16)
+
+    def run():
+        tr = Trainer(net, cfg, seed=0, device=device)
+        tr.state = tr.state._replace(seen=12800 - 32)  # crosses the warm-up's end
+        return tr, [float(tr.step(x, t)["loss"]) for _ in range(3)]
+
+    a, la = run()
+    b, lb = run()
+    differ = [f"{i}/{k}" for i, p in a.state.params.items() for k, v in p.items()
+              if not torch.equal(b.state.params[i][k], v)]
+    ranges = all(torch.equal(a.state.quant_state[k][n], b.state.quant_state[k][n])
+                 for k in a.state.quant_state for n in ("min", "max"))
+    if la != lb or differ or not ranges:
+        raise AssertionError(f"yolov2-tiny training is not deterministic: losses {la} vs {lb}, "
+                             f"params differing at {differ[:6]}, ranges equal {ranges}")
+    log(f"  yolov2-tiny {size} batch 16, three EMA-QAT steps (seen crossing 12,800): losses "
+        f"{', '.join(f'{v:.4f}' for v in la)}, equal bit for bit in a second run from the same seed")
+    del b
+    _timed_steps(a, x, t, 1)
+    r = _timed_steps(a, x, t, 5)
+    log(f"  train yolov2-tiny {size} batch 16 ema-qat: {r['ms_per_step']:.3f} ms/step, "
+        f"{r['images_per_s']:.1f} images/s, peak {r['peak_mib']:.0f} MiB allocated "
+        f"(torch.cuda.max_memory_allocated); losses finite; {card}")
 
 
 def main(argv: list[str]) -> int:
@@ -971,6 +1353,11 @@ def main(argv: list[str]) -> int:
     log("phase 3: K1 (qconv) vs plain version (bit for bit)")
     n1, n2 = phase_k1(cuda_qconv, qconv, rng, errors)
     log(f"  {n1} stride-1 and {n2} stride-2 cases equal")
+    # the phases this slice added draw from their own generator, so the
+    # earlier phases keep the inputs they had
+    rng_v2 = np.random.default_rng(7)
+    n3, _ = phase_k1(cuda_qconv, qconv, rng_v2, errors, v2_conv_cases())
+    log(f"  {n3} cases on the yolov2 family's shapes equal")
     log("phase 4: K2 (s2d_qconv) vs plain version (bit for bit)")
     log(f"  {phase_k2(cuda_s2d, qconv, rng, errors)} cases equal")
     log("phase 5: K3 (orientation probe) at the script's sizes vs plain version (bit for bit)")
@@ -989,23 +1376,48 @@ def main(argv: list[str]) -> int:
     launches = phase_serving(Server, Detection, counters, engines["flagship"], (13, 0, 0), rng,
                              [(416, 416), (300, 500), (480, 640), (120, 90), (416, 416), (333, 222),
                               (600, 400), (64, 96), (250, 250), (720, 1280)])
-    phase_serving(Server, Detection, counters, engines["v3"], (75, 0, 23), rng,
-                  [(416, 416), (480, 640), (120, 90), (333, 222), (720, 1280), (256, 256)])
+    v3_launches = phase_serving(Server, Detection, counters, engines["v3"], (75, 0, 23), rng,
+                                [(416, 416), (480, 640), (120, 90), (333, 222), (720, 1280), (256, 256)])
+
+    log("phase 13: yolov2-tiny and yolov2 engines (416, 20 classes) GPU vs CPU; yolov1-tiny and "
+        "darknet19 float programs")
+    t0 = time.perf_counter()
+    engines.update(phase_v2_engines(Engine, counters, rng_v2))
+    phase_float_programs(Engine, rng_v2)
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+    log("phase 13b: the darknet deployment path (.cfg text + .weights -> convert -> Engine -> Server)")
+    t0 = time.perf_counter()
+    v2_launches = phase_darknet_path(Engine, Server, Detection, counters, rng_v2)
+    log(f"  phase 13b: {time.perf_counter() - t0:.1f} s")
 
     log("phase 9: timings")
     k1, k2, k3, sc = timings.time_all(engines, probe_results, card, rng)
+    timings.time_k1_v2(cuda_qconv, qconv, rng_v2, card)
 
     log("phase 10: QAT forward and backward, GPU vs CPU")
     phase_qat_parity(rng)
-    log("phase 11: the Trainer (yolov3-tiny 416 batch 16; yolov3 416 batch 8)")
+    t0 = time.perf_counter()
+    phase_v2_qat_parity(rng_v2)
+    log(f"  phase 10, yolov2-tiny part: {time.perf_counter() - t0:.1f} s")
+    log("phase 11: the Trainer (yolov3-tiny 416 batch 16; yolov3 416 batch 8; yolov2-tiny 416 batch 16)")
     phase_trainer(card)
+    t0 = time.perf_counter()
+    phase_v2_trainer(card)
+    log(f"  phase 11, yolov2-tiny part: {time.perf_counter() - t0:.1f} s")
     log("phase 12: the synthetic accuracy gate through the port (QAT -> convert -> K1)")
     phase_accuracy_gate(Engine, counters)
+    log("phase 14: the yolov2-tiny region gate through the port (QAT -> convert -> K1)")
+    t0 = time.perf_counter()
+    phase_v2_gate(Engine, counters)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    log(f"  main-path K1 launches: yolov3-tiny server {launches[0]}, yolov3 server {v3_launches[0]}, "
+        f"yolov2-tiny darknet-path server {v2_launches[0]}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
-                 "yolo_quantization_tpu/ops/pallas_qconv.py:173", launches[0], errors.worst["qconv"]),
+                 "yolo_quantization_tpu/ops/pallas_qconv.py:173",
+                 launches[0] + v3_launches[0] + v2_launches[0], errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),

@@ -256,10 +256,18 @@ def test_options_of_the_slice_match_jax(programs, images, option):
         np.testing.assert_allclose(b, np.asarray(a), **DECODE_TOL)
 
 
-def test_options_outside_the_slice_raise(programs):
-    _, tp = programs
-    with pytest.raises(NotImplementedError, match="queue 1.4"):
-        tengine.Engine(tp, device="cpu", approx_topk=True)
+def test_options_outside_the_slice_raise(programs, images):
+    """``approx_topk`` runs the exact stable top-k (the reference's
+    approximate top-k is a TPU primitive), so its detections equal the JAX
+    engine's exact ones; s2d on the int16 carrier raises."""
+    jp, tp = programs
+    x = images["float32"]
+    _, jdets = _jax_predict(jp, x, 32)
+    eng = tengine.Engine(tp, max_det=32, device="cpu", approx_topk=True)
+    exact = tengine.Engine(tp, max_det=32, device="cpu").predict(x)
+    for a, b, c in zip(jdets, eng.predict(x), exact):
+        np.testing.assert_allclose(b, np.asarray(a), **DECODE_TOL)
+        np.testing.assert_array_equal(b, c)
     with pytest.raises(ValueError, match="carrier"):
         tengine.Engine(tp, device="cpu", use_s2d=True, carrier="int16")
 
@@ -357,20 +365,46 @@ def test_npz_program_runs_k1_only_under_use_s2d(programs, images, monkeypatch, t
     ((G.ActivationSpec("tanh"),), "simple"),
 ])
 def test_layer_kinds_outside_the_slice_raise(extra, kind):
-    """The yolov2/yolov1 float layers (the ``simple`` kind) raise naming
-    ROADMAP queue 1.8; the float conv and shortcut kinds run
-    (tests/test_torch_mixed.py)."""
+    """The extended float layers (the ``simple`` kind) run in the engine
+    since the yolov2/yolov1 slice: every layer equals the JAX engine's
+    (float layers within float tolerance), the heads likewise."""
+    from yolo_quantization_tpu.infer.serialize import load_program as jload
+    from yolo_quantization_tpu_torch.infer.serialize import save_program
+
     prog = _program(_small_net(extra))
     assert any(c.kind == kind for c in prog.cfg)
-    with pytest.raises(NotImplementedError, match="queue 1.8"):
-        tengine.build_forward(prog)
+    x = np.random.default_rng(4).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        save_program(os.path.join(d, "p.npz"), prog)
+        jp = jload(os.path.join(d, "p.npz"))
+    jh, jout = jengine.build_forward(jp, return_outputs=True)(jax.device_put(jp.arrays), jnp.asarray(x))
+    th, tout = tengine.build_forward(prog, return_outputs=True)(tengine.device_arrays(prog, "cpu"),
+                                                                torch.from_numpy(x))
+    for a, b in zip(jout, tout):
+        np.testing.assert_allclose(b.numpy().astype(np.float32), np.asarray(a).astype(np.float32),
+                                   rtol=1e-5, atol=1e-5)
+    for a, b in zip(jh, th):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-5)
 
 
 def test_region_head_decode_raises():
-    net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1),), classes=2, num=1),),
+    """A region head decodes as the JAX package's does; a WordTree region
+    head raises naming the queue item of ``core/tree.py``."""
+    from yolo_quantization_tpu.eval import detect as jdetect
+    from yolo_quantization_tpu.nn import graph as JG
+
+    out = np.random.default_rng(0).uniform(-1, 1, (2, 3, 4, 2 * 7)).astype(np.float32)
+    jnet = JG.NetworkDef(specs=(JG.RegionSpec(anchors=((1, 1), (2, 3)), classes=2, num=2),),
+                         width=32, height=32)
+    net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1), (2, 3)), classes=2, num=2),),
                        width=32, height=32)
-    with pytest.raises(NotImplementedError, match="RegionSpec"):
-        tdetect.decode_all_heads([torch.zeros(1, 1, 1, 7)], net)
+    for a, b in zip(jdetect.decode_all_heads([jnp.asarray(out)], jnet),
+                    tdetect.decode_all_heads([torch.from_numpy(out)], net)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **DECODE_TOL)
+    tree_net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1),), classes=2, num=1, tree="t"),),
+                            width=32, height=32)
+    with pytest.raises(NotImplementedError, match="queue 1.12"):
+        tdetect.decode_all_heads([torch.zeros(1, 1, 1, 7)], tree_net)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,10 @@ def port_modules() -> list[str]:
 def test_every_module_imports_with_jax_blocked():
     mods = port_modules()
     assert "yolo_quantization_tpu_torch.ops.cuda_qconv" in mods
+    # the darknet I/O and yolov2/yolov1 modules are held to the same rule
+    for m in ("models.cfg", "models.darknet_weights", "models.weights_tools", "models.zoo",
+              "nn.layers", "train.loss", "eval.detect"):
+        assert f"yolo_quantization_tpu_torch.{m}" in mods
     code = "\n".join([
         "import importlib, sys",
         # None in sys.modules makes any import of these names raise

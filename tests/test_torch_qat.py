@@ -318,10 +318,24 @@ def test_bf16_forward_tracks_jax_bf16():
 
 
 def test_simple_layers_raise_naming_the_roadmap():
+    """The extended float layers run in the forward (the yolov2/yolov1
+    slice) and equal the JAX forward; a WordTree softmax raises naming the
+    queue item of ``core/tree.py``."""
     net = TG.NetworkDef(specs=(TG.ConvSpec(4), TG.AvgPoolSpec()), width=8, height=8)
-    params = TG.params_to_torch(TG.init_params_numpy(0, net), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1.8"):
-        TG.forward(net, params, torch.zeros(1, 8, 8, 3), TG.ForwardMode())
+    jnet = JG.NetworkDef(specs=(JG.ConvSpec(4), JG.AvgPoolSpec()), width=8, height=8)
+    params_np = TG.init_params_numpy(0, net)
+    x = np.random.default_rng(0).uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    _, aux = TG.forward(net, TG.params_to_torch(params_np, "cpu"), torch.from_numpy(x), TG.ForwardMode(),
+                        return_outputs=True)
+    jp = jax.tree.map(jnp.asarray, params_np)
+    jy0 = JG._conv_forward(jnet.specs[0], jp[0], jnp.asarray(x), JG.ForwardMode(), None)[0]
+    jy1 = JG.apply_simple_layer(jnet.specs[1], None, jy0)
+    for got, want in zip(aux["outputs"], (jy0, jy1)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    tree = TG.NetworkDef(specs=(TG.ConvSpec(4), TG.SoftmaxSpec(tree="t")), width=8, height=8)
+    with pytest.raises(NotImplementedError, match="queue 1.12"):
+        TG.forward(tree, TG.params_to_torch(TG.init_params_numpy(0, tree), "cpu"),
+                   torch.zeros(1, 8, 8, 3), TG.ForwardMode())
 
 
 def test_qat_forward_requires_quant_state():

@@ -102,9 +102,26 @@ def test_total_loss_over_tiny_heads_matches_jax():
 
 
 def test_region_and_detection_losses_raise_naming_the_roadmap():
-    net = TG.NetworkDef(specs=(TG.RegionSpec(anchors=((1, 1),), classes=2, num=1),), width=32, height=32)
-    with pytest.raises(NotImplementedError, match="queue 1.8"):
-        tloss.total_loss([torch.zeros(1, 1, 1, 7)], torch.zeros(1, MAX_BOXES, 5), net)
+    """The region and detection losses run through ``total_loss`` since the
+    yolov2/yolov1 slice and equal the reference's (the full cases are in
+    ``test_torch_v2.py``); a WordTree region head raises naming the queue
+    item of ``core/tree.py``."""
+    rng = np.random.default_rng(0)
+    truths = make_truths(2, COLLIDING)
+    heads = [rng.uniform(0.05, 0.95, (2, 3, 3, 2 * 9)).astype(np.float32),
+             rng.uniform(-0.5, 0.9, (2, 2 * 2 * (3 + 2 * 5))).astype(np.float32)]
+    for G, lib, cast in ((JG, jloss, jnp.asarray), (TG, tloss, torch.from_numpy)):
+        net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1), (2, 2)), classes=4, num=2),
+                                  G.DetectionSpec(classes=3, num=2, side=2, sqrt=True, rescore=True)),
+                           width=32, height=32)
+        got = float(lib.total_loss([cast(h) for h in heads], cast(truths), net, seen=100)[0])
+        if G is JG:
+            want = got
+    assert got == pytest.approx(want, rel=1e-5)
+    tree = TG.NetworkDef(specs=(TG.RegionSpec(anchors=((1, 1),), classes=2, num=1, tree="t"),),
+                         width=32, height=32)
+    with pytest.raises(NotImplementedError, match="queue 1.12"):
+        tloss.total_loss([torch.zeros(1, 1, 1, 7)], torch.zeros(1, MAX_BOXES, 5), tree)
 
 
 def small_net(G, size=32):

@@ -1,12 +1,13 @@
-"""YOLO head decode, flip-TTA averaging, top-k prefilter, box correction,
-NMS and truth matching.
+"""Head decode (yolo, region, detection), flip-TTA averaging, top-k
+prefilter, box correction, NMS and truth matching.
 
-The counterpart of ``yolo_quantization_tpu/eval/detect.py`` for yolo heads:
-decode and top-k run on the engine's device in PyTorch; box correction, NMS
-and the F1 harness's truth matching run on the host in numpy with darknet's
-semantics (the numpy forms of ``yolo_quantization_tpu/utils/native.py``).
-Region (yolov2) and detection (yolov1) heads are not ported yet (ROADMAP
-queue 1.4).
+The counterpart of ``yolo_quantization_tpu/eval/detect.py``: decode and
+top-k run on the engine's device in PyTorch; box correction, NMS (darknet's
+do_nms_obj and do_nms_sort) and the F1 harness's truth matching run on the
+host in numpy with darknet's semantics (the numpy forms of
+``yolo_quantization_tpu/utils/native.py``).  WordTree region heads need
+``core/tree.py`` (ROADMAP queue 1.12); the VOC/COCO/ImageNet result writers
+and ``voc_map`` of ``eval/valid.py`` are not ported yet (ROADMAP queue 1.4).
 """
 
 from __future__ import annotations
@@ -51,6 +52,59 @@ def decode_head(
     )
 
 
+def decode_region_head(out: torch.Tensor, spec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode a YOLOv2 [region] head from its forward output (x, y and
+    objectness already logistic, classes already softmaxed).  Region
+    anchors are in feature-grid units: bw = exp(tw) * anchor_w / W."""
+    if spec.tree is not None:
+        raise NotImplementedError(_TREE_UNPORTED)
+    n, h, w, _ = out.shape
+    a = spec.num
+    r = out.reshape(n, h, w, a, 5 + spec.classes)
+    anchors = torch.tensor(spec.anchors, dtype=torch.float32, device=out.device)
+    cols = torch.arange(w, dtype=torch.float32, device=out.device).reshape(1, 1, w, 1)
+    rows = torch.arange(h, dtype=torch.float32, device=out.device).reshape(1, h, 1, 1)
+    bx = (r[..., 0] + cols) / w
+    by = (r[..., 1] + rows) / h
+    bw = torch.exp(r[..., 2]) * anchors[:, 0].reshape(1, 1, 1, a) / w
+    bh = torch.exp(r[..., 3]) * anchors[:, 1].reshape(1, 1, 1, a) / h
+    boxes = torch.stack([bx, by, bw, bh], dim=-1)
+    return (
+        boxes.reshape(n, h * w * a, 4),
+        r[..., 4].reshape(n, h * w * a),
+        r[..., 5:].reshape(n, h * w * a, spec.classes),
+    )
+
+
+_TREE_UNPORTED = "WordTree (tree=) region heads need core/tree.py, not ported yet (ROADMAP queue 1.12)"
+
+
+def tree_top_probs(cls, obj, tree, thresh: float, tree_thresh: float = 0.5):
+    """The WordTree region head's per-detection class choice; it needs
+    ``core/tree.py``, which is not ported yet."""
+    raise NotImplementedError(_TREE_UNPORTED)
+
+
+def decode_detection_head(out: torch.Tensor, spec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode a YOLOv1 [detection] head: the flat layout [S*S*C class
+    probs][S*S*B confidences][S*S*B*4 boxes], w and h squared with
+    ``sqrt``; the B boxes of a cell share its class probs."""
+    n = out.shape[0]
+    s2, b, c = spec.side * spec.side, spec.num, spec.classes
+    probs = out[:, : s2 * c].reshape(n, s2, c)
+    confs = out[:, s2 * c : s2 * (c + b)].reshape(n, s2, b)
+    boxes = out[:, s2 * (c + b) :].reshape(n, s2, b, 4)
+    cells = torch.arange(s2, device=out.device)
+    col = (cells % spec.side).to(torch.float32)
+    row = (cells // spec.side).to(torch.float32)
+    bx = (boxes[..., 0] + col[None, :, None]) / spec.side
+    by = (boxes[..., 1] + row[None, :, None]) / spec.side
+    bw = boxes[..., 2] ** 2 if spec.sqrt else boxes[..., 2]
+    bh = boxes[..., 3] ** 2 if spec.sqrt else boxes[..., 3]
+    out_boxes = torch.stack([bx, by, bw, bh], dim=-1).reshape(n, s2 * b, 4)
+    return out_boxes, confs.reshape(n, s2 * b), probs[:, :, None, :].expand(n, s2, b, c).reshape(n, s2 * b, c)
+
+
 def flip_average_head(a: torch.Tensor, b: torch.Tensor, classes: int) -> torch.Tensor:
     """Average a yolo head's raw output over the horizontal-flip TTA pair
     (darknet's avg_flipped_yolo).  ``a`` is the head on the image, ``b`` on
@@ -64,21 +118,23 @@ def flip_average_head(a: torch.Tensor, b: torch.Tensor, classes: int) -> torch.T
 
 
 def decode_all_heads(heads, net):
-    """Decode every yolo head and concat along the candidate axis."""
+    """Decode every head (yolo, region, detection) and concat along the
+    candidate axis."""
     head_specs = [
         s for s in net.specs if isinstance(s, (YoloSpec, RegionSpec, DetectionSpec))
     ]
     assert len(head_specs) == len(heads)
     parts = []
     for raw, spec in zip(heads, head_specs):
-        if not isinstance(spec, YoloSpec):
-            raise NotImplementedError(
-                f"{type(spec).__name__} decode is not ported yet (ROADMAP queue 1.4)"
+        if isinstance(spec, YoloSpec):
+            anchors = torch.tensor(
+                [spec.anchors[m] for m in spec.mask], dtype=torch.float32, device=raw.device
             )
-        anchors = torch.tensor(
-            [spec.anchors[m] for m in spec.mask], dtype=torch.float32, device=raw.device
-        )
-        parts.append(decode_head(raw, anchors, spec.classes, net.width, net.height))
+            parts.append(decode_head(raw, anchors, spec.classes, net.width, net.height))
+        elif isinstance(spec, RegionSpec):
+            parts.append(decode_region_head(raw, spec))
+        else:
+            parts.append(decode_detection_head(raw, spec))
     boxes = torch.cat([p[0] for p in parts], dim=1)
     obj = torch.cat([p[1] for p in parts], dim=1)
     cls = torch.cat([p[2] for p in parts], dim=1)
@@ -91,10 +147,11 @@ def top_k_detections(boxes, obj, cls, max_det: int = 256, approx: bool = False):
     Ties keep the lower index first, as ``lax.top_k`` does: dequantized heads
     take only 256 values per channel, so equal objectness is common, and
     ``torch.topk`` promises no order among ties.  A stable descending sort
-    does.
+    does.  ``approx`` (the reference's TPU approximate top-k, which may drop
+    a low-ranked candidate) is accepted and runs this exact top-k: CUDA has
+    no counterpart, and the port invents no lossy path.
     """
-    if approx:
-        raise NotImplementedError("approx top-k is not ported yet (ROADMAP queue 1.4)")
+    del approx
     max_det = min(max_det, obj.shape[1])
     val, idx = torch.sort(obj, dim=1, descending=True, stable=True)
     val, idx = val[:, :max_det], idx[:, :max_det]
@@ -152,6 +209,22 @@ def nms_obj(
         obj[i + 1 :][suppress] = 0.0
         cls[i + 1 :][suppress] = 0.0
     return boxes, obj, cls
+
+
+def nms_sort_per_class(boxes: np.ndarray, probs: np.ndarray, nms_thresh: float) -> np.ndarray:
+    """darknet do_nms_sort: per-class greedy suppression.  probs (M, C) =
+    objectness * class prob; returns a copy with the suppressed entries
+    zeroed, each class on its own."""
+    probs = probs.copy()
+    for c in range(probs.shape[1]):
+        order = np.argsort(-probs[:, c], kind="stable")
+        for oi, i in enumerate(order):
+            if probs[i, c] == 0:
+                continue
+            rest = order[oi + 1 :]
+            ious = box_iou(boxes[rest], boxes[i])
+            probs[rest[ious > nms_thresh], c] = 0.0
+    return probs
 
 
 def match_truths(

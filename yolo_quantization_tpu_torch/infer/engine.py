@@ -14,12 +14,14 @@ Coverage: qconv (stride 1 and 2, any weights), maxpool, upsample, route
 relu6), yolo; and the float kinds of mixed graphs (per-layer quantized=0):
 the float conv, the float -> quant boundary before a quantized conv, the
 float maxpool, the float route and shortcut, and the dequant -> add ->
-requant shortcut for other activations.  The options ``use_s2d``,
-``dynamic_input``, ``exact_leaky``, ``carrier="int16"`` and
+requant shortcut for other activations; the ``simple`` kind (the extended
+float layers of yolov2/yolov1 and the classifiers: reorg, connected,
+dropout, softmax, the region and detection heads, ...), which dequantizes
+an int8 input and runs ``nn/graph.py::apply_simple_layer``.  The options
+``use_s2d``, ``dynamic_input``, ``exact_leaky``, ``carrier="int16"`` and
 ``fuse_pool=False`` (each planned conv+pool as the conv kernel then the
 integer pool, so every layer keeps its own output); flip TTA and
-``at_size``.  The ``simple`` kind (the yolov2/yolov1 float layers) raises
-``NotImplementedError`` naming its ROADMAP item.
+``at_size``.
 """
 
 from __future__ import annotations
@@ -34,16 +36,18 @@ from yolo_quantization_tpu_torch.infer.convert import IntProgram
 from yolo_quantization_tpu_torch.nn import layers as L
 from yolo_quantization_tpu_torch.nn.graph import (
     HEAD_SPECS,
+    DetectionSpec,
     MaxPoolSpec,
+    RegionSpec,
     RouteSpec,
     ShortcutSpec,
     YoloSpec,
+    apply_simple_layer,
 )
 from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut
 from yolo_quantization_tpu_torch.ops.qconv import ACTIVATION_BY_NAME
 from yolo_quantization_tpu_torch.ops.shortcut import shortcut_params
 
-_KIND_ROADMAP = {"simple": "ROADMAP queue 1.8 (the yolov2/yolov1 float layers)"}
 _DYNAMIC_INGREDIENTS = ("bias_f", "wsum_i32", "w_scale", "out_scale_f")
 
 
@@ -121,10 +125,6 @@ def _dequant_i8(x_i8: torch.Tensor, scale: float, zp: int) -> torch.Tensor:
     return (x_i8.to(torch.float32) - (zp - 128)) * _f32(scale)
 
 
-def _unsupported(option: str, item: str):
-    raise NotImplementedError(f"{option} is not ported yet ({item})")
-
-
 def fusion_plan(program: IntProgram) -> set[int]:
     """Convs whose following 2x2/s2 maxpool runs inside the conv kernel.
 
@@ -164,14 +164,15 @@ def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tens
     """The program arrays the forward reads, as tensors on ``device``: each
     conv's weights, bias, m and weight zero points, the s2d block kernel
     where the converter made one, layer 0's ``dynamic_input`` ingredients,
-    and each float conv's folded float32 weights and bias.  On CUDA each
-    quantized conv also carries its weights packed for the kernels."""
+    each float conv's folded float32 weights and bias, and the float params
+    of the simple layers that have them (connected, local, ...).  On CUDA
+    each quantized conv also carries its weights packed for the kernels."""
     device = torch.device(device)
     out: dict[int, dict[str, torch.Tensor]] = {}
     for i, c in enumerate(program.cfg):
-        if c.kind == "fconv":
-            out[i] = {name: torch.from_numpy(np.ascontiguousarray(program.arrays[i][name])).to(device)
-                      for name in ("w_f32", "bias_f32")}
+        if c.kind in ("fconv", "simple") and i in program.arrays:
+            out[i] = {name: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                      for name, a in program.arrays[i].items()}
         if c.kind != "qconv":
             continue
         a = program.arrays[i]
@@ -222,10 +223,6 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 f"program predates dynamic_input support (layer 0 lacks "
                 f"{sorted(missing)}); re-run convert() to regenerate it"
             )
-    for c in cfg:
-        if c.kind in _KIND_ROADMAP:
-            _unsupported(f"layer kind {c.kind!r}", _KIND_ROADMAP[c.kind])
-
     fused = fusion_plan(program) if fuse_pool else set()
     s2d = {i for i, c in enumerate(cfg) if c.s2d_pool} if use_s2d else set()
     # per-layer scalars stay host ints: reading them from device would sync
@@ -341,6 +338,13 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                     x = _dequant_i8(x, c.out_scale, c.out_zp)
                 y = x
                 heads.append(x)
+            elif c.kind == "simple":
+                if x.dtype == torch.int8:
+                    qp = c.in_scales[0]
+                    x = _dequant_i8(x, qp[0], qp[1])
+                y = apply_simple_layer(s, arrays.get(i), x, train=False).contiguous()
+                if isinstance(s, (RegionSpec, DetectionSpec)):
+                    heads.append(y)
             else:
                 raise ValueError(c.kind)
             outputs.append(y)
@@ -358,15 +362,16 @@ class Engine:
     the plain versions of the kernels).
 
     predict() runs image batch -> decoded (boxes, objectness, class_probs)
-    top-k on the device and copies only that to the host.
+    top-k on the device and copies only that to the host.  ``approx_topk``
+    is accepted for the reference's API and runs the exact stable top-k: the
+    reference's approximate top-k is a TPU primitive with no CUDA
+    counterpart, and the exact sort costs little here.
     """
 
     def __init__(self, program: IntProgram, max_det: int = 256, device=None,
                  carrier: str = "int8", use_s2d: bool = False,
                  dynamic_input: bool = False, approx_topk: bool = False,
                  exact_leaky: bool = False, fuse_pool: bool = True, arrays=None):
-        if approx_topk:
-            _unsupported("approx_topk", "ROADMAP queue 1.4")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -378,6 +383,7 @@ class Engine:
         self.program = program
         self.max_det = max_det
         self.device = torch.device(device)
+        del approx_topk  # accepted for the reference's API: the top-k is exact
         self.options = dict(use_s2d=use_s2d, carrier=carrier, dynamic_input=dynamic_input,
                             exact_leaky=exact_leaky, fuse_pool=fuse_pool)
         self._fwd = build_forward(program, **self.options)

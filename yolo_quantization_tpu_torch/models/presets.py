@@ -7,7 +7,9 @@ seeded random weights and fixed synthetic quantization ranges.
 binary byte for byte: leaky yolov3-tiny with the reference's asymmetric
 weights and raw-byte route concat (run it with ``dynamic_input=True`` and
 ``exact_leaky=True``).  ``v3_program`` builds full yolov3 (darknet53, 80
-classes) the same way, the configuration ``scripts/bench_v3.py`` serves.
+classes) the same way, the configuration ``scripts/bench_v3.py`` serves;
+``v2_tiny_program`` and ``v2_program`` build yolov2-tiny and yolov2 (VOC,
+20 classes, leaky, [region] heads).
 """
 
 from __future__ import annotations
@@ -84,3 +86,28 @@ def v3_program(classes: int = 80, size: int = 416, seed: int = 0, *, perturbed: 
     if perturbed:
         qs = perturbed_quant_state(qs)
     return convert(net, init_params_numpy(seed, net), qs, symmetric_weights=symmetric_weights)
+
+
+def v2_quant_state(net: NetworkDef):
+    """``synthetic_quant_state`` with every float -> quant boundary range
+    (``in_i``, yolov2's conv 29 after the reorg route) at [-2, 6], the range
+    of the leaky outputs it concatenates; unseen, it would nudge to [0, 1]."""
+    qs = synthetic_quant_state(net)
+    for key in qs:
+        if key.startswith("in_"):
+            qs[key] = {"min": np.float32(-2.0), "max": np.float32(6.0)}
+    return qs
+
+
+def v2_tiny_program(classes: int = 20, size: int = 416, seed: int = 0) -> IntProgram:
+    """yolov2-tiny (9 convs) from seeded weights and synthetic ranges,
+    symmetric int8 weights."""
+    net = zoo.yolov2_tiny(classes=classes, width=size, height=size)
+    return convert(net, init_params_numpy(seed, net), v2_quant_state(net))
+
+
+def v2_program(classes: int = 20, size: int = 416, seed: int = 0) -> IntProgram:
+    """yolov2 (23 convs, the reorg passthrough as a float route into conv
+    29) from seeded weights and synthetic ranges, symmetric int8 weights."""
+    net = zoo.yolov2(classes=classes, width=size, height=size)
+    return convert(net, init_params_numpy(seed, net), v2_quant_state(net))

@@ -1,17 +1,26 @@
-"""Model zoo: yolov3-tiny and yolov3 as data.
+"""Model zoo: the reference's models as data.
 
-The other builders of ``yolo_quantization_tpu/models/zoo.py`` (yolov2,
-yolov1, classifiers) are not ported yet (ROADMAP queue 1.8).
+yolov3-tiny and yolov3 (yolo heads), yolov2-tiny and yolov2 ([region]
+heads, grid-unit anchors), tiny-yolo v1 ([detection] head after connected
+layers) and the darknet19 classifier, with the signatures and layer order
+of ``yolo_quantization_tpu/models/zoo.py``.
 """
 
 from __future__ import annotations
 
 from yolo_quantization_tpu_torch.nn.graph import (
+    AvgPoolSpec,
+    ConnectedSpec,
     ConvSpec,
+    DetectionSpec,
+    DropoutSpec,
     MaxPoolSpec,
     NetworkDef,
+    RegionSpec,
+    ReorgSpec,
     RouteSpec,
     ShortcutSpec,
+    SoftmaxSpec,
     UpsampleSpec,
     YoloSpec,
 )
@@ -145,3 +154,119 @@ def yolov3(
     s.append(YoloSpec(mask=(0, 1, 2), anchors=anchors, classes=classes))
 
     return NetworkDef(specs=tuple(s), width=width, height=height)
+
+
+# YOLOv2 region anchors are in 13x13-grid units (darknet yolov2-voc.cfg)
+VOC_V2_ANCHORS = (
+    (1.3221, 1.73145), (3.19275, 4.00944), (5.05587, 8.09892),
+    (9.47112, 4.84053), (11.2364, 10.0071),
+)
+VOC_V2_TINY_ANCHORS = (
+    (1.08, 1.19), (3.42, 4.41), (6.63, 11.38), (9.42, 5.11), (16.62, 10.52),
+)
+
+
+def _v2_conv(activation: str, q: bool):
+    return lambda f, k=3: ConvSpec(filters=f, size=k, pad=1 if k == 3 else 0,  # noqa: E731
+                                   activation=activation, quantized=q)
+
+
+def _region_head(num: int, classes: int, q: bool) -> ConvSpec:
+    return ConvSpec(filters=num * (5 + classes), size=1, pad=0, activation="linear",
+                    batch_normalize=False, quantized=q, quant_stop=True)
+
+
+def yolov2_tiny(
+    classes: int = 20,
+    activation: str = "leaky",
+    anchors: tuple[tuple[float, float], ...] = VOC_V2_TINY_ANCHORS,
+    width: int = 416,
+    height: int = 416,
+    quantized: bool = True,
+) -> NetworkDef:
+    """Tiny YOLOv2 (darknet yolov2-tiny-voc.cfg topology, [region] head):
+    16 layers, 9 convs, five 2x2/s2 pools and a 2x2/s1 pool (layer 11)."""
+    q = quantized
+    c = _v2_conv(activation, q)
+    specs: list = []
+    for f in (16, 32, 64, 128, 256):
+        specs += [c(f), MaxPoolSpec(2, 2, quantized=q)]
+    specs += [c(512), MaxPoolSpec(2, 1, quantized=q), c(1024), c(1024)]
+    specs.append(_region_head(len(anchors), classes, q))
+    specs.append(RegionSpec(anchors=anchors, classes=classes, num=len(anchors)))
+    return NetworkDef(tuple(specs), width=width, height=height)
+
+
+def yolov2(
+    classes: int = 20,
+    activation: str = "leaky",
+    anchors: tuple[tuple[float, float], ...] = VOC_V2_ANCHORS,
+    width: int = 416,
+    height: int = 416,
+    quantized: bool = True,
+) -> NetworkDef:
+    """Full YOLOv2 (darknet yolov2-voc.cfg topology): the darknet19 backbone,
+    the reorg passthrough from the 26x26x512 conv and a [region] head; 32
+    layers, 23 convs."""
+    q = quantized
+    c = _v2_conv(activation, q)
+    s: list = [
+        c(32), MaxPoolSpec(2, 2, quantized=q),                      # 0-1
+        c(64), MaxPoolSpec(2, 2, quantized=q),                      # 2-3
+        c(128), c(64, 1), c(128), MaxPoolSpec(2, 2, quantized=q),   # 4-7
+        c(256), c(128, 1), c(256), MaxPoolSpec(2, 2, quantized=q),  # 8-11
+        c(512), c(256, 1), c(512), c(256, 1), c(512),               # 12-16
+        MaxPoolSpec(2, 2, quantized=q),                             # 17
+        c(1024), c(512, 1), c(1024), c(512, 1), c(1024),            # 18-22
+        c(1024), c(1024),                                           # 23-24
+    ]
+    passthrough = 16  # the 26x26x512 conv (cfg: route layers=-9)
+    s.append(RouteSpec(layers=(passthrough,), quantized=q))         # 25
+    s.append(c(64, 1))                                              # 26
+    s.append(ReorgSpec(stride=2))                                   # 27
+    s.append(RouteSpec(layers=(27, 24), quantized=q))               # 28
+    s.append(c(1024))                                               # 29
+    s.append(_region_head(len(anchors), classes, q))                # 30
+    s.append(RegionSpec(anchors=anchors, classes=classes, num=len(anchors)))
+    return NetworkDef(tuple(s), width=width, height=height)
+
+
+def yolov1_tiny(
+    classes: int = 20,
+    num: int = 2,
+    side: int = 7,
+    width: int = 448,
+    height: int = 448,
+) -> NetworkDef:
+    """Tiny YOLOv1 (darknet tiny-yolo v1 topology): a float conv/pool
+    backbone, connected layers with dropout and a [detection] head with the
+    canonical cfg's loss weights."""
+    c = _v2_conv("leaky", False)
+    s: list = []
+    for f in (16, 32, 64, 128, 256, 512):
+        s += [c(f), MaxPoolSpec(2, 2)]
+    s += [c(1024), c(1024), c(1024)]
+    s.append(ConnectedSpec(outputs=256, activation="linear"))
+    s.append(ConnectedSpec(outputs=4096, activation="leaky"))
+    s.append(DropoutSpec(probability=0.5))
+    s.append(ConnectedSpec(outputs=side * side * (num * 5 + classes), activation="linear"))
+    s.append(DetectionSpec(classes=classes, num=num, side=side, coords=4, sqrt=True, rescore=True,
+                           object_scale=1.0, noobject_scale=0.5, class_scale=1.0, coord_scale=5.0))
+    return NetworkDef(tuple(s), width=width, height=height)
+
+
+def darknet19(classes: int = 1000, width: int = 224, height: int = 224) -> NetworkDef:
+    """The darknet19 classifier: a float conv backbone, a 1x1 class conv,
+    global average pool and softmax."""
+    c = _v2_conv("leaky", False)
+    s: list = [c(32), MaxPoolSpec(2, 2)]
+    s += [c(64), MaxPoolSpec(2, 2)]
+    s += [c(128), c(64, 1), c(128), MaxPoolSpec(2, 2)]
+    s += [c(256), c(128, 1), c(256), MaxPoolSpec(2, 2)]
+    s += [c(512), c(256, 1), c(512), c(256, 1), c(512), MaxPoolSpec(2, 2)]
+    s += [c(1024), c(512, 1), c(1024), c(512, 1), c(1024)]
+    s.append(ConvSpec(filters=classes, size=1, pad=0, activation="linear",
+                      batch_normalize=False, quantized=False))
+    s.append(AvgPoolSpec())
+    s.append(SoftmaxSpec())
+    return NetworkDef(tuple(s), width=width, height=height)

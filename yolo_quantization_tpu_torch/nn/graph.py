@@ -267,6 +267,10 @@ class NetworkDef:
             out.append((h, w, c))
         return out
 
+    def out_channels(self) -> list[int]:
+        """Static shape inference: the channels produced by each layer."""
+        return [c for (_, _, c) in self.shapes()]
+
     def head_indices(self) -> list[int]:
         return [i for i, s in enumerate(self.specs) if isinstance(s, HEAD_SPECS)]
 
@@ -569,13 +573,87 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
     return y, bn_stats, new_state
 
 
+def _no_tree(s) -> None:
+    if getattr(s, "tree", None) is not None:
+        raise NotImplementedError(
+            f"{type(s).__name__} with a WordTree (tree=) needs core/tree.py, which is not ported "
+            "yet (ROADMAP queue 1.12)")
+
+
+def apply_simple_layer(s: LayerSpec, p: dict[str, torch.Tensor] | None, x: torch.Tensor, *,
+                       train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Forward of the extended (float-only) darknet layers, shared by the
+    float/QAT graph and the integer engine (which dequantizes into it).
+
+    ``[region]``: logistic on x, y and objectness, the raw w and h, softmax
+    (or with ``softmax=0`` logistic) classes.  ``[detection]``: the raw
+    output, with ``softmax`` a softmax over each cell's classes.
+    """
+    _no_tree(s)
+    if isinstance(s, ConnectedSpec):
+        if s.batch_normalize:
+            y = L.connected(x, p["w"], torch.zeros_like(p["bias"]))
+            scale, bias = L.bn_inference_scale_bias(p["gamma"], p["bias"], p["mean"], p["var"])
+            y = y * scale + bias
+        else:
+            y = L.connected(x, p["w"], p["bias"])
+        return L.activate(y, s.activation)
+    if isinstance(s, SoftmaxSpec):
+        return L.softmax(x, s.temperature, s.groups)
+    if isinstance(s, AvgPoolSpec):
+        return L.global_avgpool(x)
+    if isinstance(s, DropoutSpec):
+        return L.dropout(x, s.probability, generator if train else None)
+    if isinstance(s, CropSpec):
+        return L.crop(x, s.crop_height, s.crop_width, train=train, generator=generator, flip=s.flip)
+    if isinstance(s, LocalSpec):
+        return L.activate(L.local_conv(x, p["w"], p["bias"], s.size, s.stride, s.pad), s.activation)
+    if isinstance(s, DeconvSpec):
+        y = L.deconv2d(x, p["w"], s.stride)
+        if s.batch_normalize:
+            scale, bias = L.bn_inference_scale_bias(p["gamma"], p["bias"], p["mean"], p["var"])
+            y = y * scale.reshape(1, 1, 1, -1) + bias.reshape(1, 1, 1, -1)
+        else:
+            y = y + p["bias"].reshape(1, 1, 1, -1)
+        return L.activate(y, s.activation)
+    if isinstance(s, ReorgSpec):
+        return L.reorg(x, s.stride, s.reverse)
+    if isinstance(s, LRNSpec):
+        return L.lrn(x, s.size, s.alpha, s.beta, s.kappa)
+    if isinstance(s, L2NormSpec):
+        return L.l2norm(x)
+    if isinstance(s, LogisticSpec):
+        return torch.sigmoid(x)
+    if isinstance(s, ActivationSpec):
+        return L.activate(x, s.activation)
+    if isinstance(s, BatchNormSpec):
+        scale, bias = L.bn_inference_scale_bias(p["gamma"], p["bias"], p["mean"], p["var"])
+        shape = (1,) * (x.ndim - 1) + (-1,)
+        return x * scale.reshape(shape) + bias.reshape(shape)
+    if isinstance(s, RegionSpec):
+        n, h, w, _ = x.shape
+        r = x.reshape(n, h, w, s.num, 5 + s.classes)
+        cls = torch.softmax(r[..., 5:], dim=-1) if s.softmax else torch.sigmoid(r[..., 5:])
+        return torch.cat([torch.sigmoid(r[..., 0:2]), r[..., 2:4], torch.sigmoid(r[..., 4:5]), cls],
+                         dim=-1).reshape(x.shape)
+    if isinstance(s, DetectionSpec):
+        if s.softmax:
+            b, s2 = x.shape[0], s.side * s.side
+            cls = torch.softmax(x[:, : s2 * s.classes].reshape(b, s2, s.classes), dim=-1)
+            x = torch.cat([cls.reshape(b, s2 * s.classes), x[:, s2 * s.classes :]], dim=-1)
+        return x
+    raise TypeError(f"not a simple layer: {s}")
+
+
 def layer_forward(net: NetworkDef, i: int, params, x: torch.Tensor, outputs: list[torch.Tensor],
-                  mode: ForwardMode, qs: dict | None, bn_stats: dict) -> torch.Tensor:
+                  mode: ForwardMode, qs: dict | None, bn_stats: dict,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Layer i of ``forward``: its output from its input ``x`` and the earlier
     layers' ``outputs`` (routes and shortcuts read them).  Range updates go
     into ``qs`` (a dict the caller owns), batch statistics into
-    ``bn_stats``.  Running a layer on given inputs is how two forwards are
-    compared layer by layer."""
+    ``bn_stats``; dropout and the training crop draw from ``generator``.
+    Running a layer on given inputs is how two forwards are compared layer
+    by layer."""
     s = net.specs[i]
     key = f"act_{i}"
     if isinstance(s, ConvSpec):
@@ -602,9 +680,7 @@ def layer_forward(net: NetworkDef, i: int, params, x: torch.Tensor, outputs: lis
     if isinstance(s, YoloSpec):
         return x  # decoded separately (eval/detect.py)
     if isinstance(s, SIMPLE_SPECS):
-        raise NotImplementedError(
-            f"layer {i} ({type(s).__name__}): the extended float layers belong to the "
-            "yolov2/yolov1 models and are not ported yet (ROADMAP queue 1.8)")
+        return apply_simple_layer(s, params.get(i), x, train=mode.train, generator=generator)
     raise TypeError(f"unknown spec {s}")
 
 
@@ -627,15 +703,16 @@ def input_forward(x: torch.Tensor, mode: ForwardMode, qs: dict | None) -> torch.
 def forward(net: NetworkDef, params: dict[int, dict[str, torch.Tensor]], x: torch.Tensor,
             mode: ForwardMode = ForwardMode(),
             quant_state: dict[str, dict[str, torch.Tensor]] | None = None,
-            return_outputs: bool = False):
+            return_outputs: bool = False, generator: torch.Generator | None = None):
     """Run the graph.  Returns (head_outputs, aux).
 
-    head_outputs: the raw float NHWC tensor of every YoloSpec, channels
-    A*(4+1+classes).  aux: {"bn_stats": {i: (mean, var)}, "quant_state":
-    the (EMA-updated) ranges}, and with ``return_outputs`` also "input" (the
-    fake-quantized input) and "outputs" (every layer's output).  The
-    extended float layers of the yolov2 and yolov1 models raise (ROADMAP
-    queue 1.8).
+    head_outputs: one tensor per head: the raw float NHWC output of every
+    YoloSpec (channels A*(4+1+classes)), the forward output of every
+    RegionSpec and DetectionSpec.  aux: {"bn_stats": {i: (mean, var)},
+    "quant_state": the (EMA-updated) ranges}, and with ``return_outputs``
+    also "input" (the fake-quantized input) and "outputs" (every layer's
+    output).  In training modes, dropout and the crop layer draw from
+    ``generator``; without one they are the identity and the centre crop.
     """
     qs = dict(quant_state) if quant_state is not None else None
     x = input_forward(x, mode, qs)
@@ -644,8 +721,8 @@ def forward(net: NetworkDef, params: dict[int, dict[str, torch.Tensor]], x: torc
     heads: list[torch.Tensor] = []
     bn_stats: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
     for i, s in enumerate(net.specs):
-        y = layer_forward(net, i, params, x, outputs, mode, qs, bn_stats)
-        if isinstance(s, YoloSpec):
+        y = layer_forward(net, i, params, x, outputs, mode, qs, bn_stats, generator)
+        if isinstance(s, HEAD_SPECS):
             heads.append(y)
         outputs.append(y)
         x = y

@@ -9,15 +9,24 @@ Gradients follow the reference's autodiff: a max or min of two equal values
 splits the gradient in halves (``torch.maximum``/``torch.minimum``, not
 ``torch.clamp``, whose gradient passes whole at the bounds), and a float
 maxpool window gives a tie's whole gradient to its first element
-(``F.max_pool2d`` over a ``-inf``-padded map).  The extended darknet layers
-(connected, softmax, reorg, ...) belong to the yolov2/yolov1 models (ROADMAP
-queue 1.8).
+(``F.max_pool2d`` over a ``-inf``-padded map).
+
+The extended darknet layers of the yolov2/yolov1 models and the classifiers
+(connected, softmax, global average pool, dropout, reorg, LRN, L2 norm,
+crop, the locally connected conv and the transpose conv) follow.  Their
+matmuls and convolutions run in ``float32_convs()`` forward and backward
+(TF32 off, deterministic algorithms), and no gradient of theirs is an
+atomic scatter: ``reorg`` is a gather whose gradient is the gather by the
+inverse permutation.  Dropout and the training crop draw from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -289,3 +298,189 @@ def route_concat(tensors: list[torch.Tensor]) -> torch.Tensor:
 def shortcut_add(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     """Residual add (darknet [shortcut], same shapes)."""
     return x + skip
+
+
+# ---------------------------------------------------------------------------
+# The extended darknet layer set (float only)
+# ---------------------------------------------------------------------------
+
+
+class _Matmul(torch.autograd.Function):
+    """a @ b with forward and backward in ``float32_convs()`` (TF32 off on
+    the card: autograd runs the backward after the forward's scope)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with float32_convs():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with float32_convs():
+            ga = g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+            gb = a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def connected(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Fully connected layer over every non-batch dim, flattened in NHWC
+    order; w is (in_features, out_features)."""
+    return _Matmul.apply(x.reshape(x.shape[0], -1), w) + bias
+
+
+def softmax(x: torch.Tensor, temperature: float = 1.0, groups: int = 1) -> torch.Tensor:
+    """darknet's softmax layer: over the flattened (H, W, C) of each image,
+    in ``groups`` independent groups."""
+    flat = x.reshape(x.shape[0], groups, -1)
+    return torch.softmax(flat / temperature, dim=-1).reshape(x.shape)
+
+
+def global_avgpool(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> (N, 1, 1, C) mean."""
+    return torch.mean(x, dim=(1, 2), keepdim=True)
+
+
+def dropout(x: torch.Tensor, prob: float, generator: torch.Generator | None) -> torch.Tensor:
+    """darknet's dropout: at training time each value is kept with
+    probability 1 - prob (the mask drawn from ``generator``, which lives on
+    x's device) and survivors are scaled by 1/(1 - prob); without a
+    generator, or at prob 0, the identity."""
+    if generator is None or prob <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - prob
+    return torch.where(keep, x / (1.0 - prob), torch.zeros_like(x))
+
+
+@functools.lru_cache(maxsize=32)
+def _reorg_permutation(h: int, w: int, c: int, stride: int) -> np.ndarray:
+    """darknet's reorg as a flat NCHW permutation, out_flat[i] =
+    in_flat[perm[i]].  darknet reinterprets the (c, h, w) input buffer as
+    (c/s^2, h*s, w*s) and gathers from it; the result is not a
+    space-to-depth, and yolov2 checkpoints depend on its exact order."""
+    out_c2 = c // (stride * stride)
+    k = np.arange(c).reshape(c, 1, 1)
+    j = np.arange(h).reshape(1, h, 1)
+    i = np.arange(w).reshape(1, 1, w)
+    off, c2 = k // out_c2, k % out_c2
+    h2 = j * stride + off // stride
+    w2 = i * stride + off % stride
+    perm = np.empty(c * h * w, np.int64)
+    perm[(i + w * (j + h * k)).reshape(-1)] = (w2 + w * stride * (h2 + h * stride * c2)).reshape(-1)
+    return perm
+
+
+@functools.lru_cache(maxsize=64)
+def _reorg_index(h: int, w: int, c: int, stride: int, reverse: bool, device: torch.device):
+    """The (gather, inverse) index pair on ``device``, built once per shape."""
+    perm = _reorg_permutation(h, w, c, stride)
+    inv = np.argsort(perm)
+    fwd, back = (inv, perm) if reverse else (perm, inv)
+    return (torch.from_numpy(fwd).to(device), torch.from_numpy(back).to(device))
+
+
+class _Gather(torch.autograd.Function):
+    """x[:, index] along dim 1 for a permutation ``index``; the gradient is
+    the gather by the inverse permutation (no scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.save_for_backward(inverse)
+        return x.index_select(1, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        return g.index_select(1, inverse), None, None
+
+
+def reorg(x: torch.Tensor, stride: int, reverse: bool = False) -> torch.Tensor:
+    """darknet [reorg] on NHWC: the flat NCHW gather of
+    ``_reorg_permutation`` ((N, H, W, C) -> (N, H/s, W/s, C*s^2)), or with
+    ``reverse`` its inverse ((N, H*s, W*s, C/s^2))."""
+    n, h, w, c = x.shape
+    if reverse:
+        out_shape = (n, c // (stride * stride), h * stride, w * stride)
+    else:
+        out_shape = (n, c * stride * stride, h // stride, w // stride)
+    index, inverse = _reorg_index(h, w, c, stride, reverse, x.device)
+    flat = x.permute(0, 3, 1, 2).reshape(n, -1)
+    return _Gather.apply(flat, index, inverse).reshape(out_shape).permute(0, 2, 3, 1)
+
+
+def lrn(x: torch.Tensor, size: int, alpha: float, beta: float, kappa: float) -> torch.Tensor:
+    """Local response normalization across channels:
+    x / (kappa + alpha * sum over the window of x^2)^beta."""
+    sq = x * x
+    c = x.shape[-1]
+    half = size // 2
+    padded = F.pad(sq, (half, half))
+    window = 0
+    for i in range(size):  # summed in the reference's order
+        window = window + padded[..., i : i + c]
+    return x / (kappa + alpha * window) ** beta
+
+
+def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Channel-wise L2 normalization."""
+    return x / torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True) + eps)
+
+
+def crop(x: torch.Tensor, crop_h: int, crop_w: int, *, train: bool = False,
+         generator: torch.Generator | None = None, flip: bool = False) -> torch.Tensor:
+    """darknet's crop layer: the centre crop, or at training time (with a
+    generator) a random offset and, with ``flip``, a random horizontal flip
+    of the whole batch, drawn from ``generator``."""
+    n, h, w, c = x.shape
+    if train and generator is not None:
+        dev = generator.device
+        dy = int(torch.randint(0, max(h - crop_h, 0) + 1, (), generator=generator, device=dev))
+        dx = int(torch.randint(0, max(w - crop_w, 0) + 1, (), generator=generator, device=dev))
+        do_flip = bool(torch.rand((), generator=generator, device=dev) < 0.5)
+        out = x[:, dy : dy + crop_h, dx : dx + crop_w, :]
+        return out.flip(2) if flip and do_flip else out
+    dy, dx = (h - crop_h) // 2, (w - crop_w) // 2
+    return x[:, dy : dy + crop_h, dx : dx + crop_w, :]
+
+
+def _patches(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
+    """(N, Ho*Wo, C*size*size) patches of an NHWC map, each in (c, ky, kx)
+    order (channel slowest), from strided views: their gradient is a sum of
+    slices, with no scatter."""
+    n, h, w, c = x.shape
+    oh, ow = (h - size) // stride + 1, (w - size) // stride + 1
+    cols = torch.stack([x[:, ky : ky + (oh - 1) * stride + 1 : stride,
+                          kx : kx + (ow - 1) * stride + 1 : stride, :]
+                        for ky in range(size) for kx in range(size)], dim=-1)
+    return cols.reshape(n, oh * ow, c * size * size)
+
+
+def local_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, size: int,
+               stride: int, pad: int) -> torch.Tensor:
+    """Locally connected layer (untied weights per output position):
+    w (Ho*Wo, size*size*Cin, Cout), bias (Ho*Wo, Cout); zero padding."""
+    n, h, wd, _ = x.shape
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    oh, ow = (h + 2 * pad - size) // stride + 1, (wd + 2 * pad - size) // stride + 1
+    patches = _patches(x, size, stride).transpose(0, 1)     # (P, N, K)
+    out = _Matmul.apply(patches, w).transpose(0, 1) + bias  # (N, P, O)
+    return out.reshape(n, oh, ow, -1)
+
+
+def deconv2d(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """darknet's transpose conv (no padding), as the reference computes it:
+    the input dilated by ``stride``, padded by (k - 1, k + s - 2 + max(k - s,
+    0) - (k - 1)) and correlated with the HWIO kernel as it is (not
+    flipped); out = (in - 1)*s + k for k >= s."""
+    n, h, wd, c = x.shape
+    k = w.shape[0]
+    if stride > 1:
+        xd = x.new_zeros((n, (h - 1) * stride + 1, (wd - 1) * stride + 1, c))
+        xd[:, ::stride, ::stride, :] = x
+    else:
+        xd = x
+    lo = k - 1
+    hi = k + stride - 2 + max(k - stride, 0) - lo
+    return conv2d(F.pad(xd, (0, 0, lo, hi, lo, hi)), w, 1, 0)

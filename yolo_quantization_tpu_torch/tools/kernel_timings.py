@@ -10,8 +10,10 @@ graph-timed, on the 1x1 layers its shape rules allow) on the flagship's 13
 convs and on yolov3's five stride-2 convs, K2 vs K1's fused stem per layer,
 the shortcut kernel on one shortcut of each yolov3 stage vs its plain
 chain, device forwards of the engines at batch 1, 16 and 64 (eager, CUDA
-events; yolov3 at 16 and 64), the probe cases vs ``torch._int_mm``.  Each
-time sits beside its bound.  Prints, checks nothing.
+events; yolov3, yolov2-tiny and yolov2 at 16 and 64), K1 on the yolov2
+family's new shapes (the large-K 13x13 convs, the passthrough 1x1 and the
+125-channel head), the probe cases vs ``torch._int_mm``.  Each time sits
+beside its bound.  Prints, checks nothing.
 
 ``chip_smoke.py`` runs ``time_all`` as its last phase.  Run alone, the
 module builds the kernels and the engines itself; copied into an older
@@ -108,6 +110,28 @@ def v3_shortcut_shapes():
 
     shapes = zoo.yolov3(classes=80, width=416, height=416).shapes()
     return [(i, *shapes[i]) for i in V3_SHORTCUTS]
+
+
+def v2_layers():
+    """(name, h, w, ci, co, k, pad, act) of the yolov2 family's K1 shapes at
+    416 that yolov3-tiny and yolov3 do not have: yolov2-tiny's 3x3 512->1024
+    and 1024->1024 at 13x13 (GEMM K 4,608 and 9,216), yolov2's conv 29
+    (Cin 1,280 after the reorg route, K 11,520), its passthrough 1x1 conv 26
+    (512->64 at 26x26) and the 125-channel region head (Co off 16)."""
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_LINEAR
+
+    out = []
+    for model, layers in (("yolov2_tiny", (12, 13, 14)), ("yolov2", (26, 29))):
+        net = getattr(zoo, model)(width=416, height=416)
+        shapes = net.shapes()
+        for i in layers:
+            s = net.specs[i]
+            # yolov2's conv 26 reads route 25, which reads conv 16
+            h, w, ci = shapes[16] if (model, i) == ("yolov2", 26) else shapes[i - 1]
+            act = ACT_LINEAR if s.activation == "linear" else ACT_LEAKY
+            out.append((f"{model}.{i}", h, w, ci, s.filters, s.size, s.pad, act))
+    return out
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -289,6 +313,46 @@ def time_shortcut(cuda_shortcut, shortcut, rng, card):
     return tot
 
 
+def time_k1_v2(cuda_qconv, qconv, rng, card):
+    """K1 on ``v2_layers`` at batch 16 (symmetric), graph-timed, beside its
+    ops bound, the plain version and ``torch._int_mm`` on the 1x1 layers its
+    shape rules allow (the passthrough conv 26; not the 125-channel head)."""
+    tot = Totals()
+    log(f"  K1 on the yolov2 family's new shapes at batch 16 [{card}]: kernel graph-timed, eager, "
+        "plain, _int_mm (graph):")
+    for (name, h, w, ci, co, k, pad, act) in v2_layers():
+        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, k)
+        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+        wp = cuda_qconv.pack_weights(wt_t)
+
+        def kernel():
+            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=act, out_zp_static=0,
+                                             out_i8=True, w_packed=wp)
+
+        def plain():
+            qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, pad=pad, act=act, symmetric=True,
+                                   out_i8=True)
+
+        g1, e1, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), graph_time_ms(kernel)
+        k_ms = (g1 + g2) / 2
+        p_ms = cuda_time_ms(plain, 3, warmup=1)
+        lib_ms = None
+        if k == 1 and int_mm_ok(16 * h * w, ci, co):
+            a2, b2 = xt.reshape(-1, ci), wt_t.reshape(ci, co)
+            lib_ms = graph_time_ms(lambda: torch._int_mm(a2, b2))
+        mac = 16 * h * w * co * k * k * ci
+        bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * h * w * co, 2 * mac)
+        tot.add(k_ms, e1, p_ms, bound, lib_ms)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        log(f"    {name:14s} {h}x{w}x{ci}->{co} k{k} (GEMM K {k * k * ci}): kernel {k_ms:.4f} ms "
+            f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound), eager {e1:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), _int_mm {lib} [{card}]")
+    log(f"  the yolov2 family's new shapes at batch 16: kernel {tot.ms:.4f} ms, plain "
+        f"{tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
+    return tot
+
+
 def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
     from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
 
@@ -339,7 +403,7 @@ def time_engines(engines, rng, card):
     for b in (1, 16, 64):
         x = rng.uniform(0, 1, (b, 416, 416, 3)).astype(np.float32)
         xd = torch.from_numpy(x).cuda()
-        for cname in ("flagship", "s2d", "parity", "v3", "v3-perturbed"):
+        for cname in ("flagship", "s2d", "parity", "v3", "v3-perturbed", "v2-tiny", "v2"):
             if (b == 1 and cname != "flagship") or cname not in engines:
                 continue
             eng = engines[cname]
@@ -389,7 +453,8 @@ def time_probe(probe, results, card):
 
 
 def time_all(engines, probe_results, card, rng):
-    """Every timing above; returns the Totals of K1 (the flagship's 13
+    """Every timing above but ``time_k1_v2`` (timed apart, on its own
+    generator); returns the Totals of K1 (the flagship's 13
     convs), K2, K3 ({"a", "b"}) and the shortcut kernel."""
     from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut, qconv, shortcut
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
@@ -407,7 +472,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timings: needs a CUDA GPU")
     from yolo_quantization_tpu_torch.infer.engine import Engine
-    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, cuda_shortcut
+    from yolo_quantization_tpu_torch.models.presets import v2_program, v2_tiny_program
+    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, cuda_shortcut, qconv
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
     from yolo_quantization_tpu_torch.tools.profile_engine import configurations
 
@@ -421,7 +487,10 @@ def main() -> int:
     probe.build()
     engines = {name: Engine(program, device="cuda", **option)
                for v3 in (False, True) for name, (program, option) in configurations(v3).items()}
+    engines["v2-tiny"] = Engine(v2_tiny_program(), device="cuda")
+    engines["v2"] = Engine(v2_program(), device="cuda")
     time_all(engines, list(probe.run_cases("cuda")), card, np.random.default_rng(0))
+    time_k1_v2(cuda_qconv, qconv, np.random.default_rng(7), card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     return 0
 

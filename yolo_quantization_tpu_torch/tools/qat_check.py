@@ -209,11 +209,11 @@ def check_pass(net, i: int, mode: ForwardMode, got: dict, ref: dict, quant_state
     return shares
 
 
-def reference_pass(net, params, x, mode: ForwardMode, quant_state, device, truths):
+def reference_pass(net, params, x, mode: ForwardMode, quant_state, device, truths, seen=None):
     """The whole forward and the loss's backward on ``device``: the
     fake-quantized input, every layer's output and the loss's gradient
-    with respect to it, the shared inputs and cotangents of the per-layer
-    comparison."""
+    with respect to it (``seen`` gates the region loss's warm-up), the
+    shared inputs and cotangents of the per-layer comparison."""
     from yolo_quantization_tpu_torch.train.loss import total_loss
 
     dev = torch.device(device)
@@ -224,18 +224,19 @@ def reference_pass(net, params, x, mode: ForwardMode, quant_state, device, truth
     heads, aux = forward(net, p, xin, mode, qs, return_outputs=True)
     for o in aux["outputs"]:
         o.retain_grad()
-    total_loss(heads, truths.to(dev), net)[0].backward()
+    total_loss(heads, truths.to(dev), net, seen=seen)[0].backward()
     cots = [o.grad.detach() if o.grad is not None else torch.zeros_like(o) for o in aux["outputs"]]
     return aux["input"].detach(), [o.detach() for o in aux["outputs"]], cots
 
 
 def compare_devices(net, params, x, truths, mode: ForwardMode, quant_state, ref_device, test_device,
-                    log=None) -> dict:
+                    log=None, seen=None) -> dict:
     """Every layer of ``net`` on ``test_device`` against ``ref_device`` from
     the reference's inputs and loss cotangents (``truths`` the batch's
-    boxes).  Raises on the first tensor outside its rule; returns the
-    smallest close share seen per kind."""
-    x0, outputs, cots = reference_pass(net, params, x, mode, quant_state, ref_device, truths)
+    boxes, ``seen`` the images-seen count the loss reads).  Raises on the
+    first tensor outside its rule; returns the smallest close share seen
+    per kind."""
+    x0, outputs, cots = reference_pass(net, params, x, mode, quant_state, ref_device, truths, seen)
     cots = [kink_safe_cotangent(net, i, y, c) for i, (y, c) in enumerate(zip(outputs, cots))]
     worst = {"value": 1.0, "grad": 1.0}
     qs_cpu = ({k: {n: v.detach().cpu() for n, v in st.items()} for k, st in quant_state.items()}

@@ -5,8 +5,8 @@ state (params, optimizer state, EMA ranges, step, seen) round-trips, so a
 resume continues in the same QAT phase at the same point of the LR
 schedule.  Each save is ``<ckpt_dir>/<step>/state.pt`` (torch state dicts
 and CPU tensors), written to a temporary directory and renamed into place;
-the newest ``max_to_keep`` steps stay.  Model interchange with the JAX
-package is darknet ``.weights`` I/O (ROADMAP queue 1.8).
+the newest ``max_to_keep`` steps stay.  Model interchange with darknet
+and the JAX package is ``.weights`` I/O (``models/darknet_weights.py``).
 """
 
 from __future__ import annotations

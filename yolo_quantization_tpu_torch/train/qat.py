@@ -43,7 +43,7 @@ from yolo_quantization_tpu_torch.nn.graph import (
     params_to_torch,
     quant_state_to_torch,
 )
-from yolo_quantization_tpu_torch.train.loss import total_loss
+from yolo_quantization_tpu_torch.train.loss import _threefry2x32, total_loss
 
 BN_ROLLING_DECAY = 0.99
 
@@ -137,31 +137,13 @@ def _expf_xla(x) -> np.float32:
         return _f32(y * np.array([(int(n) + 127) << 23], np.uint32).view(np.float32)[0])
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _threefry2x32(k1: int, k2: int, x1: int, x2: int) -> tuple[int, int]:
-    """The Threefry-2x32 block (20 rounds), as the reference's PRNG uses it."""
-    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
-    for i in range(5):
-        for r in rot[i % 2]:
-            x[0] = (x[0] + x[1]) & _M32
-            x[1] = ((x[1] << r) | (x[1] >> (32 - r))) & _M32
-            x[1] ^= x[0]
-        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
-        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _M32
-    return x[0], x[1]
-
-
 def _uniform_at(step: int) -> np.float32:
     """uniform(fold_in(PRNGKey(0), step)) of the reference's counter-based
     draw, bit for bit: the key (0, 0) folded with the step, then one 32-bit
     draw (counter (0, 0), the two words xor'ed) as a mantissa in [1, 2)."""
-    k = _threefry2x32(0, 0, 0, step & _M32)
+    k = _threefry2x32(0, 0, 0, step & 0xFFFFFFFF)
     b1, b2 = _threefry2x32(k[0], k[1], 0, 0)
-    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    bits = (int(b1 ^ b2) >> 9) | 0x3F800000
     return np.array([bits], np.uint32).view(np.float32)[0] - _f32(1.0)
 
 
@@ -271,7 +253,9 @@ def make_train_step(net: NetworkDef, cfg: TrainConfig, qat: bool,
     the state's device.  The optimizer updates the parameter tensors in
     place; the returned state carries the new ranges, step and seen.
     ``metrics["loss"]`` (and ``"sparsity"`` when pruning) are 0-d device
-    tensors, ``metrics["lr"]`` the rate used.
+    tensors, ``metrics["lr"]`` the rate used.  Dropout (and the training
+    crop) draw from ``generator``; without one they are the identity, as in
+    the reference's step.
     """
     mode = ForwardMode(
         train=True, qat=qat, update_ranges=qat and not learned_ranges and not freeze_ranges,
@@ -279,7 +263,8 @@ def make_train_step(net: NetworkDef, cfg: TrainConfig, qat: bool,
     )
     lr_fn = lr_schedule(cfg)
 
-    def step(state: TrainState, images: torch.Tensor, truths: torch.Tensor):
+    def step(state: TrainState, images: torch.Tensor, truths: torch.Tensor,
+             generator: torch.Generator | None = None):
         opt = state.opt_state
         lr = lr_fn(state.step)
         for group in opt.param_groups:
@@ -289,7 +274,7 @@ def make_train_step(net: NetworkDef, cfg: TrainConfig, qat: bool,
         if learned_ranges:
             qs_in = {k: {n: v.detach().requires_grad_(True) for n, v in st.items()}
                      for k, st in qs_in.items()}
-        heads, aux = forward(net, state.params, images, mode, qs_in)
+        heads, aux = forward(net, state.params, images, mode, qs_in, generator=generator)
         loss, _ = total_loss(heads, truths, net, input_hw=tuple(images.shape[1:3]), seen=state.seen)
         loss.backward()
         metrics = {"loss": loss.detach(), "lr": lr}
@@ -333,9 +318,11 @@ class Trainer:
 
     Runs on the GPU unless ``device`` says otherwise (``"cpu"``), and raises
     where there is no GPU and no device was given.  Params come from
-    ``init_params_numpy(seed)``.  ``step`` takes numpy or torch batches and
-    moves them to the device (through pinned memory on CUDA).  Multi-scale
-    training is a batch of another size: the graph is shape-free.
+    ``init_params_numpy(seed)``, and dropout's masks from a generator on
+    the device seeded with ``seed``.  ``step`` takes numpy or torch batches
+    and moves them to the device (through pinned memory on CUDA).
+    Multi-scale training is a batch of another size: the graph is
+    shape-free.
     """
 
     def __init__(self, net: NetworkDef, cfg: TrainConfig, seed: int = 0, device=None):
@@ -343,6 +330,7 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device, "Trainer")
         self.state = init_train_state(net, cfg, seed, self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._float_step = make_train_step(net, cfg, qat=False)
         self._qat_step = make_train_step(net, cfg, qat=True)
         self._learned_step = None  # built on first use
@@ -372,7 +360,8 @@ class Trainer:
             fn = self._frozen_step
         else:
             fn = self._qat_step
-        self.state, metrics = fn(self.state, self._to_device(images), self._to_device(truths))
+        self.state, metrics = fn(self.state, self._to_device(images), self._to_device(truths),
+                                 self.generator)
         return metrics
 
 
