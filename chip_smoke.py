@@ -65,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      yolov3-tiny at 416, batch 4: the whole float-train forward held by its
      loss, then every layer from the CPU's inputs and loss cotangents in the
      float-train, EMA-QAT-train, QAT-eval and learned modes (outputs, range
-     updates, batch statistics, gradients);
+     updates, batch statistics, gradients; a weight code that differs must
+     sit at a rounding tie, and the CPU's pass takes the card's codes);
  11. the Trainer on the card: yolov3-tiny at 416, batch 16, two float, two
      EMA-QAT, one learned-range and one frozen-range step, run twice from
      one seed and equal bit for bit (training is deterministic), a
@@ -96,7 +97,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      the yolov2 forwards and K1 on their new shapes;
  14. tests/test_accuracy_gate_v2_v1.py's region gate through the port:
      yolov2-tiny at 96x96, 900 steps with the anchor-prior warm-up crossed,
-     convert, K1: float F1 >= 60, integer >= QAT-sim - 0.5.
+     convert, K1: float F1 >= 60, integer >= QAT-sim - 0.5;
+ 15. the command line on the card (yolo_quantization_tpu_torch/cli): the
+     native host library must build (its image entry points reported);
+     yolov3-tiny at 416, 5 classes, the flagship ranges on seeded weights
+     written as a quantized .weights, 48 synthetic JPEG/PNG images of mixed
+     sizes with labels; export-program, detect --out (weights and program),
+     valid --format voc/coco/imagenet --map, f1, recall, demo over a frames
+     directory and (where cv2 imports) a video file, train 3 steps at batch
+     16 with QAT from step 1 -> export -> valid --map (the trained program
+     on K1); K1 launches must equal 13 x the card forwards; valid on 4
+     images on the card equals --device cpu (lines in order within rtol
+     1e-5, atol 1e-6; the same AP and mAP); one detect as a subprocess
+     (python -m yolo_quantization_tpu_torch.cli); then the card's busy
+     share of one valid run under utils/profiling.trace, valid's host
+     stages per image and native against numpy letterbox and nms_sort,
+     printed with the card's name and power limit.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -751,7 +767,10 @@ def phase_qat_parity(rng) -> None:
         for name in ("float-train", "ema-qat-train", "qat-eval", "learned"):
             w = Q.compare_devices(net, params, x, t, Q.MODES[name], qs, "cpu", "cuda")
             log(f"  {name}: all {len(net.specs)} layers and the input within the rules "
-                f"(smallest close shares: values {w['value']:.6f}, gradients {w['grad']:.6f})")
+                f"(smallest close shares: values {w['value']:.6f}, gradients {w['grad']:.6f}; "
+                f"largest share of a layer's cotangent zeroed where an ulp decides an output's "
+                f"fake-quant differently on the two devices {w['excluded']:.2e}; weight codes at a "
+                f"rounding tie that differ {w['code_flips']})")
     finally:
         torch.backends.cudnn.allow_tf32 = False
 
@@ -1267,7 +1286,9 @@ def phase_v2_qat_parity(rng, size: int = 416, test_device: str = "cuda") -> None
     for name in ("float-train", "ema-qat-train", "qat-eval"):
         w = Q.compare_devices(net, params, x, t, Q.MODES[name], qs, "cpu", test_device, seen=12000)
         log(f"  yolov2-tiny {name}: all {len(net.specs)} layers and the input within the rules "
-            f"(smallest close shares: values {w['value']:.6f}, gradients {w['grad']:.6f})")
+            f"(smallest close shares: values {w['value']:.6f}, gradients {w['grad']:.6f}; "
+            f"cotangent share zeroed {w['excluded']:.2e}; weight codes at a tie that differ "
+            f"{w['code_flips']})")
 
 
 def phase_v2_trainer(card: str, size: int = 416, device: str = "cuda") -> None:
@@ -1305,6 +1326,307 @@ def phase_v2_trainer(card: str, size: int = 416, device: str = "cuda") -> None:
     log(f"  train yolov2-tiny {size} batch 16 ema-qat: {r['ms_per_step']:.3f} ms/step, "
         f"{r['images_per_s']:.1f} images/s, peak {r['peak_mib']:.0f} MiB allocated "
         f"(torch.cuda.max_memory_allocated); losses finite; {card}")
+
+
+def make_cli_dataset(root: str) -> str:
+    """A synthetic VOC-style set for phase 15: 48 seeded dark images at
+    mixed sizes, one to three coloured boxes each, JPEG and PNG alternately,
+    with darknet labels."""
+    from PIL import Image
+
+    rng = np.random.default_rng(15)
+    sizes = ((416, 416), (375, 500), (480, 640), (333, 222), (600, 400), (256, 256))
+    os.makedirs(f"{root}/images", exist_ok=True)
+    os.makedirs(f"{root}/labels", exist_ok=True)
+    paths = []
+    for i in range(48):
+        h, w = sizes[i % len(sizes)]
+        im = (rng.uniform(0, 0.22, (h, w, 3)) * 255).astype(np.uint8)
+        labels = []
+        for _ in range(1 + i % 3):
+            bw, bh = rng.uniform(0.15, 0.6, 2)
+            x, y = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            cls = int(rng.integers(3))
+            im[int((y - bh / 2) * h):int((y + bh / 2) * h), int((x - bw / 2) * w):int((x + bw / 2) * w)] = \
+                CLASS_COLORS[cls]
+            labels.append(f"{cls} {x:.4f} {y:.4f} {bw:.4f} {bh:.4f}")
+        p = f"{root}/images/{i:06d}.{'jpg' if i % 2 == 0 else 'png'}"
+        Image.fromarray(im).save(p, **({"quality": 95} if i % 2 == 0 else {}))
+        with open(f"{root}/labels/{i:06d}.txt", "w") as f:
+            f.write("\n".join(labels) + "\n")
+        paths.append(p)
+    list_file = f"{root}/list.txt"
+    with open(list_file, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return list_file
+
+
+def run_cli(argv: list[str]) -> str:
+    """``cli.main.main(argv)`` in this process; returns what it printed."""
+    import contextlib
+    import io
+
+    from yolo_quantization_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    return buf.getvalue()
+
+
+def result_rows(path: str) -> list:
+    """(image id, numbers) per line of a VOC comp4 file."""
+    with open(path) as f:
+        return [(ln.split()[0], np.array([float(v) for v in ln.split()[1:]])) for ln in f]
+
+
+def same_rows(got, want, rtol: float, atol: float) -> bool:
+    """The same lines, numbers within (rtol, atol plus each side's %.6f
+    rounding); each pixel coordinate is a sum of two decoded terms bounded
+    by the row's coordinates, so rtol applies to their sum of magnitudes."""
+    if len(got) != len(want):
+        return False
+    for (gk, gv), (wk, wv) in zip(got, want):
+        scale = np.r_[abs(wv[0]), np.full(len(wv) - 1, np.abs(wv[1:]).sum())]
+        if gk != wk or (np.abs(gv - wv) > atol + 1e-6 + rtol * scale).any():
+            return False
+    return True
+
+
+def time_host_stages(engine, paths, card: str) -> None:
+    """write_voc_results' per-image stages timed one by one on this host:
+    decode, letterbox, predict (one K1 forward, copy included), NMS and the
+    result lines; then native against numpy letterbox and nms_sort on a
+    720x1280 image at 416x416."""
+    import io
+
+    from yolo_quantization_tpu_torch.data.image import letterbox as np_letterbox
+    from yolo_quantization_tpu_torch.data.image import load_image_rgb
+    from yolo_quantization_tpu_torch.eval import detect
+    from yolo_quantization_tpu_torch.utils import native
+
+    net = engine.program.net
+    stages = {"decode": [], "letterbox": [], "predict": [], "nms+write": []}
+    sink = io.StringIO()
+    t_all = time.perf_counter()
+    for p in paths:
+        t0 = time.perf_counter()
+        im = load_image_rgb(p)
+        t1 = time.perf_counter()
+        x = native.letterbox(im, net.width, net.height)
+        t2 = time.perf_counter()
+        boxes, obj, cls = engine.predict(x[None])
+        t3 = time.perf_counter()
+        h, w, _ = im.shape
+        b = detect.correct_boxes(boxes[0], w, h, net.width, net.height)
+        probs = native.nms_sort(b, obj[0][:, None] * cls[0], 0.45)
+        for k, ci in zip(*np.nonzero(probs > 0.005)):
+            sink.write(f"{os.path.basename(p)} {probs[k, ci]:.6f} {b[k, 0]:.6f} {b[k, 1]:.6f} "
+                       f"{b[k, 2]:.6f} {b[k, 3]:.6f}\n")
+        t4 = time.perf_counter()
+        for name, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[name].append(dt * 1e3)
+    total = time.perf_counter() - t_all
+    log("  valid's host stages per image (ms, median over "
+        f"{len(paths)} images of mixed sizes): "
+        + ", ".join(f"{k} {np.median(v):.3f}" for k, v in stages.items())
+        + f"; {len(paths) / total:.1f} images/s one image at a time; {card}")
+
+    rng = np.random.default_rng(16)
+    im = rng.uniform(0, 1, (720, 1280, 3)).astype(np.float32)
+
+    def median_ms(fn, reps=10):
+        fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    size = (net.width, net.height)  # 416x416
+    lb_native, lb_numpy = native.letterbox(im, *size), np_letterbox(im, *size)
+    boxes, obj, cls = engine.predict(lb_native[None])
+    b = detect.correct_boxes(boxes[0], 1280, 720, *size)
+    probs = obj[0][:, None] * cls[0]
+    ns_native, ns_numpy = native.nms_sort(b, probs, 0.45), detect.nms_sort_per_class(b, probs, 0.45)
+    if np.abs(ns_native - ns_numpy).max() > 1e-6 or np.abs(lb_native - lb_numpy).max() > 1e-4:
+        raise AssertionError("the native letterbox or nms_sort disagrees with numpy")
+    log(f"  letterbox 720x1280 -> {size[0]}x{size[1]}: native "
+        f"{median_ms(lambda: native.letterbox(im, *size)):.3f} ms, "
+        f"numpy {median_ms(lambda: np_letterbox(im, *size)):.3f} ms (max |diff| "
+        f"{np.abs(lb_native - lb_numpy).max():.2e}); nms_sort of {len(b)} detections x 5 classes: native "
+        f"{median_ms(lambda: native.nms_sort(b, probs, 0.45)):.3f} ms, numpy "
+        f"{median_ms(lambda: detect.nms_sort_per_class(b, probs, 0.45)):.3f} ms; {card}")
+
+
+def device_busy_share(label: str, argv: list[str], logdir: str, card: str) -> None:
+    """One CLI run under ``utils.profiling.trace``: the share of the traced
+    span (first to last event) in which the card ran a kernel or a copy,
+    from the union of the trace's CUDA events.  The profiler's own host
+    overhead lengthens the span, so the share is a lower bound."""
+    from torch.autograd import DeviceType
+
+    from yolo_quantization_tpu_torch.utils import profiling
+
+    with profiling.trace(logdir) as prof:
+        run_cli(argv)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log(f"  {label} under torch.profiler: the trace holds no CUDA events; device busy share "
+            f"not measured; {card}")
+        return
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    extent = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    log(f"  {label} under torch.profiler: card busy {busy / 1e3:.3f} ms of a "
+        f"{extent / 1e3:.3f} ms traced span ({busy / extent:.4f}; {len(spans)} CUDA events); {card}")
+
+
+def phase_cli(counters, card: str) -> int:
+    """The command line on the card (``cli.main.main`` in this process, and
+    once as a user runs it): yolov3-tiny at 416, 5 classes, flagship ranges
+    on seeded weights written as a quantized .weights; 48 images, training
+    at batch 16.  Every card forward must launch K1 13 times.  Returns the
+    phase's K1 launches."""
+    import tempfile
+
+    from yolo_quantization_tpu_torch.infer.engine import Engine
+    from yolo_quantization_tpu_torch.infer.serialize import load_program
+    from yolo_quantization_tpu_torch.models.darknet_weights import save_darknet_weights
+    from yolo_quantization_tpu_torch.models.presets import flagship_network, synthetic_quant_state
+    from yolo_quantization_tpu_torch.nn.graph import init_params_numpy
+    from yolo_quantization_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library did not build (a machine with nvcc has g++)")
+    log(f"  native host library {os.path.basename(native.load_library()._name)}; image entry points "
+        f"(libjpeg/libpng decode, fused augmentation) built: {native.has_image()}")
+    model = ["--model", "yolov3-tiny", "--size", "416", "--classes", "5", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as root:
+        lst = make_cli_dataset(root)
+        paths = open(lst).read().split()
+        n = len(paths)
+        net = flagship_network(classes=5, size=416)
+        weights, program = f"{root}/flagship.weights", f"{root}/flagship.npz"
+        save_darknet_weights(weights, net, init_params_numpy(0, net), synthetic_quant_state(net))
+        src = ["--weights", weights]
+        reset_counts(*counters)
+        forwards = 0
+
+        run_cli(["export-program", *model, *src, "--out", program])
+        for s in (src, ["--program", program]):
+            out = run_cli(["detect", *model, *s, "--image", paths[2], "--thresh", "0.3",
+                           "--out", f"{root}/det.png"])
+            forwards += 1
+            if "predicted in" not in out or not os.path.getsize(f"{root}/det.png"):
+                raise AssertionError(f"detect {s[0]} printed {out!r}")
+        log(f"  export-program, detect --out from --weights and --program: "
+            f"{len(out.splitlines()) - 2} boxes above 0.3")
+
+        maps = {}
+        for fmt in ("voc", "coco", "imagenet"):
+            t0 = time.perf_counter()
+            out = run_cli(["valid", *model, *src, "--test-list", lst, "--format", fmt, "--map",
+                           "--out-dir", f"{root}/valid"])
+            dt = time.perf_counter() - t0
+            forwards += 2 * n  # the writer and voc_map each run every image once
+            maps[fmt] = re.search(r"mAP@0.5 = ([\d.]+)", out).group(1)
+            log(f"  valid --format {fmt} --map over {n} images: {dt:.2f} s ({2 * n / dt:.1f} forwards/s "
+                f"with the host stages), mAP@0.5 {maps[fmt]}")
+        if len(set(maps.values())) != 1:
+            raise AssertionError(f"mAP differs between the valid runs: {maps}")
+        with open(f"{root}/valid/coco_results.json") as f:
+            coco = json.load(f)
+        if not coco or not all(np.isfinite(d["bbox"]).all() for d in coco):
+            raise AssertionError("empty or non-finite COCO results")
+
+        t0 = time.perf_counter()
+        out = run_cli(["f1", *model, *src, "--test-list", lst])
+        f1_s = time.perf_counter() - t0
+        forwards += -(-n // 16)  # f1 runs batches of 16
+        best = re.search(r"best: .*", out).group(0)
+        out = run_cli(["recall", *model, "--program", program, "--test-list", lst])
+        forwards += n
+        log(f"  f1 over {n} images at batch 16: {n / f1_s:.1f} images/s ({best}); "
+            f"recall: {out.strip()}; {card}")
+
+        demos = [("frames", f"{root}/images", ["--out-dir", f"{root}/demo"])]
+        try:
+            import cv2  # noqa: F401
+
+            from yolo_quantization_tpu_torch.data.video import synthesize_clip
+
+            demos.append(("video", synthesize_clip(f"{root}/clip.mp4", n_frames=48, size=320),
+                          ["--out-video", f"{root}/clip_det.mp4"]))
+        except ImportError:
+            log("  cv2 does not import here: the video demo is not run")
+        for kind, frames, extra in demos:
+            out = run_cli(["demo", *model, "--program", program, "--frames", frames, *extra,
+                           "--batch-size", "8", "--thresh", "0.3"])
+            m = re.search(r"(\d+) frames in ([\d.]+)s \(([\d.]+) fps\), (\d+) batches, avg fill ([\d.]+)", out)
+            forwards += int(m.group(4))
+            log(f"  demo over a {kind} {'directory' if kind == 'frames' else 'file'}: {m.group(1)} frames, "
+                f"{m.group(3)} fps, {m.group(4)} batches of 8, fill {m.group(5)}; {card}")
+
+        # the trained program through K1: train, export, valid
+        t0 = time.perf_counter()
+        out = run_cli(["train", *model, "--train-list", lst, "--backup-dir", f"{root}/backup",
+                       "--batch-size", "16", "--max-batches", "3", "--quant-start", "1"])
+        losses = [float(v) for v in re.findall(r"^\d+: loss ([\d.naninf]+)", out, re.M)]
+        if len(losses) != 3 or not np.isfinite(losses).all():
+            raise AssertionError(f"train printed {out!r}")
+        run_cli(["export", *model, "--ckpt", f"{root}/backup", "--out", f"{root}/trained.weights"])
+        out = run_cli(["valid", *model, "--weights", f"{root}/trained.weights", "--test-list", lst,
+                       "--format", "voc", "--map", "--max-images", "16", "--out-dir", f"{root}/trained"])
+        forwards += 2 * min(n, 16)
+        if "FLOAT" in out or "mAP@0.5" not in out:
+            raise AssertionError(f"the trained program was not served by the integer engine: {out!r}")
+        log(f"  train 3 steps at batch 16 (QAT from step 1; losses {', '.join(f'{v:.4f}' for v in losses)}), "
+            f"export, valid --map on {min(n, 16)} images through K1: {re.search(r'mAP.*', out).group(0)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # the card against the CPU on the first 4 images
+        res = {}
+        for dev in ("cuda", "cpu"):
+            out = run_cli(["valid", *model, *src, "--test-list", lst, "--format", "voc", "--map",
+                           "--max-images", "4", "--out-dir", f"{root}/four_{dev}", "--device", dev])
+            res[dev] = ([ln for ln in out.splitlines() if "AP" in ln],
+                        [result_rows(f"{root}/four_{dev}/comp4_det_test_class{c}.txt") for c in range(5)])
+        forwards += 2 * min(n, 4)
+        if res["cuda"][0] != res["cpu"][0]:
+            raise AssertionError(f"AP/mAP differ: card {res['cuda'][0]}, CPU {res['cpu'][0]}")
+        for c, (g, w) in enumerate(zip(res["cuda"][1], res["cpu"][1])):
+            if not same_rows(g, w, **DECODE_TOL):
+                raise AssertionError(f"valid on the card and on the CPU differ in class{c}'s file")
+        log(f"  valid --map on {min(n, 4)} images, card vs --device cpu: {sum(map(len, res['cuda'][1]))} result lines "
+            f"equal within rtol 1e-5, atol 1e-6 in the same order; {res['cuda'][0][-1]} on both")
+
+        launches = tuple(c.launches for c in counters)
+        if launches != (13 * forwards, 0, 0):
+            raise AssertionError(f"(K1, K2, shortcut) launches {launches} for {forwards} card forwards, "
+                                 f"expected {13 * forwards} K1")
+        log(f"  {forwards} card forwards, (K1, K2, shortcut) launches {launches}")
+
+        # once as a user runs it
+        proc = subprocess.run([sys.executable, "-m", "yolo_quantization_tpu_torch.cli", "detect", *model,
+                               *src, "--image", paths[0]], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or "predicted in" not in proc.stdout:
+            raise AssertionError(f"python -m yolo_quantization_tpu_torch.cli detect failed:\n{proc.stderr}")
+        log(f"  python -m yolo_quantization_tpu_torch.cli detect: exit 0, {proc.stdout.splitlines()[0]}")
+
+        device_busy_share(f"valid --format voc over {n} images",
+                          ["valid", *model, *src, "--test-list", lst, "--format", "voc",
+                           "--out-dir", f"{root}/traced"], f"{root}/trace", card)
+        time_host_stages(Engine(load_program(program), device="cuda"), paths, card)
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches[0]
 
 
 def main(argv: list[str]) -> int:
@@ -1410,14 +1732,16 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     phase_v2_gate(Engine, counters)
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    log("phase 15: the command line on the card (yolov3-tiny 416, 5 classes, 48 images)")
+    cli_launches = phase_cli(counters, card)
     log(f"  main-path K1 launches: yolov3-tiny server {launches[0]}, yolov3 server {v3_launches[0]}, "
-        f"yolov2-tiny darknet-path server {v2_launches[0]}")
+        f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:173",
-                 launches[0] + v3_launches[0] + v2_launches[0], errors.worst["qconv"]),
+                 launches[0] + v3_launches[0] + v2_launches[0] + cli_launches, errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),

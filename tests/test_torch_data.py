@@ -1,10 +1,11 @@
 """The port's training data path against the JAX package's, on the CPU:
 the truth layout, the HSV distortion, the fused place/distort/flip chain,
 ``augment_detection`` (the same draws from the same seed), the dataset and
-the batch loader.  The JAX package's ``augment_detection`` takes its native
+the batch loader.  Both packages' ``augment_detection`` take their native
 kernel when that library builds; these tests hold the port's numpy chain
 against the JAX package's numpy chain (``place_distort_flip_numpy``), the
-native kernel's own golden reference, and both decode through PIL."""
+native kernel's own golden reference, and both decode through PIL
+(``tests/test_torch_native.py`` holds the native kernels against these)."""
 
 import numpy as np
 import pytest
@@ -21,13 +22,16 @@ torch.set_num_threads(2)
 
 @pytest.fixture
 def numpy_chain(monkeypatch):
-    """The JAX package's augment_detection on its numpy chain, and its image
-    decode on PIL (its native decoder, where it builds, rounds the /255 its
-    own way; the port's native shim is ROADMAP queue 1.10)."""
-    from yolo_quantization_tpu.utils import native
+    """Both packages' augment_detection on their numpy chain, and their
+    image decode on PIL (the native decoder, where it builds, rounds the
+    /255 its own way), so both sides run the same host path."""
+    from yolo_quantization_tpu.utils import native as jnative
+    from yolo_quantization_tpu_torch.utils import native as tnative
 
-    monkeypatch.setattr(native, "augment_place", jvoc.place_distort_flip_numpy)
-    monkeypatch.setattr(native, "decode_image", lambda path: None)
+    monkeypatch.setattr(jnative, "augment_place", jvoc.place_distort_flip_numpy)
+    monkeypatch.setattr(jnative, "decode_image", lambda path: None)
+    monkeypatch.setattr(tnative, "augment_place", tvoc.place_distort_flip_numpy)
+    monkeypatch.setattr(tnative, "decode_image", lambda path: None)
 
 
 def test_boxes_to_truth_and_letterbox_boxes():

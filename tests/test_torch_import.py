@@ -27,7 +27,10 @@ def test_every_module_imports_with_jax_blocked():
     assert "yolo_quantization_tpu_torch.ops.cuda_qconv" in mods
     # the darknet I/O and yolov2/yolov1 modules are held to the same rule
     for m in ("models.cfg", "models.darknet_weights", "models.weights_tools", "models.zoo",
-              "nn.layers", "train.loss", "eval.detect"):
+              "nn.layers", "train.loss", "eval.detect",
+              # the command line and the modules it joins
+              "cli", "cli.main", "cli.__main__", "eval.valid", "utils.native", "utils.profiling",
+              "data.video"):
         assert f"yolo_quantization_tpu_torch.{m}" in mods
     code = "\n".join([
         "import importlib, sys",
@@ -38,6 +41,8 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(m)",
         "from yolo_quantization_tpu_torch.ops import _build, cuda_qconv",
         "assert cuda_qconv.launches == 0 and not _build._libs, 'import built or loaded a kernel'",
+        "from yolo_quantization_tpu_torch.utils import native",
+        "assert native._lib is None and not native._lib_failed, 'import built the host library'",
         "bad = [k for k, v in sys.modules.items() if v is not None and (k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'yolo_quantization_tpu.')))]",
         "assert not bad, bad",

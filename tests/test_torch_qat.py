@@ -356,3 +356,96 @@ def test_params_and_ranges_round_trip_numpy():
             np.testing.assert_array_equal(back[i][k], pn[i][k])
     qs = TG.init_quant_state(net, (0.0, 1.0))
     assert TG.quant_state_to_numpy(TG.quant_state_to_torch(qs, "cpu")) == qs
+
+
+def test_fake_quant_safe_cotangent_holds_an_element_moved_across_the_range_edge():
+    """A conv output that sits exactly on the nudged range's upper edge,
+    moved above it by one ulp on the tested side: the straight-through gate
+    closes there, which moves its pixel's input gradient and (learned mode)
+    the max gradient, so the gradient rule fails on that element alone.
+    With the cotangent zeroed where the two sides' gates differ, the same
+    cotangent on both, the rule holds, and one element was excluded; more
+    such elements than the rule's own 1 - SHARE raise."""
+    net = TG.NetworkDef(specs=(TG.ConvSpec(filters=4, size=1, pad=0, activation="linear",
+                                           batch_normalize=False),), width=32, height=32)
+    params = TG.params_to_torch(TG.init_params_numpy(0, net), "cpu")
+    with torch.no_grad():
+        params[0]["w"][..., 0] = torch.tensor([1.0, 0.0, 0.0])  # channel 0 copies input channel 0
+        params[0]["bias"].zero_()
+    qs = {"act_0": {"min": torch.tensor(-1.3), "max": torch.tensor(0.9)}}
+    qp = Q.nudge_min_max(qs["act_0"]["min"], qs["act_0"]["max"])
+    edge = ((Q.QUANT_MAX - qp.zero_point).to(torch.float32) * qp.scale).item()
+    above = float(np.nextafter(np.float32(edge), np.float32(np.inf)))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 32, 32, 3)).astype(np.float32))
+    x[0, 1, 2, 0] = edge
+    moved = x.clone()
+    moved[0, 1, 2, 0] = above
+    cot = torch.from_numpy(rng.standard_normal((1, 32, 32, 4)).astype(np.float32))
+    mode = Q.MODES["learned"]
+
+    def passes(c):
+        return (Q.layer_pass(net, 0, params, moved, [], mode, qs, c, "cpu"),
+                Q.layer_pass(net, 0, params, x, [], mode, qs, c, "cpu"))
+
+    with pytest.raises(AssertionError, match="grad"):
+        Q.check_pass(net, 0, mode, *passes(cot), qs)
+    ref, test = (Q.fake_quant_inputs(net, 0, params, v, [], mode, qs, "cpu") for v in (x, moved))
+    assert ref["act"][0][0, 1, 2, 0].item() == edge and test["act"][0][0, 1, 2, 0].item() > edge
+    torch.testing.assert_close(ref["w"], test["w"], rtol=0, atol=0)
+    assert Q.weight_code_flips(ref, test, mode.symmetric_w) == 0
+    safe, share = Q.fake_quant_safe_cotangent(ref, test, cot)
+    assert share == 1 / cot.numel() and safe[0, 1, 2, 0] == 0
+    torch.testing.assert_close(safe[cot != safe], torch.zeros(1))
+    shares = Q.check_pass(net, 0, mode, *passes(safe), qs)
+    assert shares["grad"] == 1.0
+    assert Q.fake_quant_inputs(net, 0, params, x, [], Q.MODES["float-train"], qs, "cpu") == \
+        {"act": None, "w": None}
+    many_x, many = x.clone(), x.clone()
+    many_x[0, 5, :8, 0], many[0, 5, :8, 0] = edge, above
+    ref, test = (Q.fake_quant_inputs(net, 0, params, v, [], mode, qs, "cpu") for v in (many_x, many))
+    with pytest.raises(AssertionError, match="an ulp decides"):
+        Q.fake_quant_safe_cotangent(ref, test, cot)
+
+
+def test_weight_code_flipped_at_a_tie_is_held_to_it_and_moves_no_gradient():
+    """A weight exactly at a rounding tie of its channel's grid, moved below
+    it by one ulp on the tested side, takes the next code down: the input
+    gradient through it then fails the rule.  ``weight_code_flips`` counts
+    that code as one at a tie, and with the tested side's fake-quantized
+    weights in the reference's pass every output and gradient holds, with
+    nothing excluded.  A code one step off where no tie is, raises;
+    differences of the scale by ulps are not flips."""
+    net = TG.NetworkDef(specs=(TG.ConvSpec(filters=4, size=3, pad=1, activation="linear",
+                                           batch_normalize=False),), width=8, height=8)
+    params = TG.params_to_torch(TG.init_params_numpy(0, net), "cpu")
+    scale = 2.0 ** -7
+    with torch.no_grad():
+        params[0]["w"][..., 2] = torch.clamp(params[0]["w"][..., 2], -60 * scale, 60 * scale)
+        params[0]["w"][0, 0, 0, 2] = 127 * scale  # channel 2's grid step is exactly 2**-7
+        params[0]["w"][1, 1, 1, 2] = 3.5 * scale  # a tie: rounds half to even, code 4
+    moved = {0: {k: v.clone() for k, v in params[0].items()}}
+    with torch.no_grad():
+        moved[0]["w"][1, 1, 1, 2] = float(np.nextafter(np.float32(3.5 * scale), np.float32(0)))
+    qs = {"act_0": {"min": torch.tensor(-50.0), "max": torch.tensor(50.0)}}
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2, 8, 8, 4)).astype(np.float32))
+    mode = Q.MODES["learned"]
+    ref, test = (Q.fake_quant_inputs(net, 0, p, x, [], mode, qs, "cpu") for p in (params, moved))
+    assert (ref["w"][1][1, 1, 1, 2].item(), test["w"][1][1, 1, 1, 2].item()) == (4 * scale, 3 * scale)
+    assert Q.weight_code_flips(ref, test, mode.symmetric_w) == 1
+    safe, share = Q.fake_quant_safe_cotangent(ref, test, cot)
+    assert share == 0.0
+    got = Q.layer_pass(net, 0, moved, x, [], mode, qs, safe, "cpu")
+    with pytest.raises(AssertionError, match="layer 0"):
+        Q.check_pass(net, 0, mode, got, Q.layer_pass(net, 0, params, x, [], mode, qs, safe, "cpu"), qs)
+    want = Q.layer_pass(net, 0, params, x, [], mode, qs, safe, "cpu", weights=test["w"][1])
+    assert Q.check_pass(net, 0, mode, got, want, qs) == {"value": 1.0, "grad": 1.0}
+    step = Q.weight_step(ref["w"][0], mode.symmetric_w)
+    off = ref["w"][1].clone()
+    off[2, 2, 0, 1] += step[1]
+    with pytest.raises(AssertionError, match="off a rounding tie"):
+        Q.weight_code_flips(ref, {"act": None, "w": (ref["w"][0], off)}, mode.symmetric_w)
+    ulps = {"act": None, "w": (ref["w"][0], ref["w"][1] * (1 + 2.0 ** -22))}
+    assert Q.weight_code_flips(ref, ulps, mode.symmetric_w) == 0

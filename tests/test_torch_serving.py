@@ -1,5 +1,7 @@
 """The port's continuous-batching Server: concurrent requests, the same
-detections as Engine.predict + nms_obj, and close() resolving every future."""
+detections as Engine.predict + nms_obj on the Server's host path (the
+native letterbox and NMS where the library builds), and close() resolving
+every future."""
 
 import threading
 
@@ -7,11 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_quantization_tpu_torch.data.image import letterbox
 from yolo_quantization_tpu_torch.eval import detect
 from yolo_quantization_tpu_torch.infer.engine import Engine
 from yolo_quantization_tpu_torch.infer.serving import Detection, Server
 from yolo_quantization_tpu_torch.models.presets import flagship_program
+from yolo_quantization_tpu_torch.utils import native
 
 torch.set_num_threads(2)
 
@@ -30,10 +32,10 @@ def reference_detections(engine, image, thresh=0.5, nms=0.45):
     if image.dtype == np.uint8:
         image = image.astype(np.float32) / np.float32(255.0)
     h, w, _ = image.shape
-    boxes, obj, cls = engine.predict(letterbox(image, SIZE, SIZE)[None])
+    boxes, obj, cls = engine.predict(native.letterbox(image, SIZE, SIZE)[None])
     b = detect.correct_boxes(boxes[0], w, h, SIZE, SIZE)
     keep = obj[0] > thresh
-    bb, oo, cc = detect.nms_obj(b[keep], obj[0][keep], cls[0][keep], nms)
+    bb, oo, cc = native.nms_obj(b[keep], obj[0][keep], cls[0][keep], nms)
     order = [j for j in np.argsort(-oo) if oo[j] > thresh]
     return bb[order], oo[order], cc[order]
 

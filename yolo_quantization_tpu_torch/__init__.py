@@ -6,7 +6,8 @@ relative path, and it never imports ``jax``.  Layouts at every public
 function are the reference's: NHWC activations, HWIO weights, and the same
 ``.npz`` array names.
 
-The port covers integer serving and F1 evaluation of yolov3-tiny:
+Its modules (training, darknet I/O and the other model families beside
+these are in models/, train/ and nn/):
 
   nn/graph.py        model description (specs, NetworkDef, numpy init)
   core/quant.py      host-side quant math (multiplier encoding)
@@ -24,6 +25,11 @@ The port covers integer serving and F1 evaluation of yolov3-tiny:
   data/image.py      image decoding, darknet letterbox
   data/voc.py        image lists and label files
   infer/serving.py   continuous-batching Server
+  eval/valid.py      VOC/COCO/ImageNet result writers and VOC mAP
+  utils/native.py    ctypes binding of the native host runtime (native/*.cc)
+  utils/profiling.py torch.profiler trace, step timer, JSONL metrics
+  data/video.py      OpenCV video read/write
+  cli/               the command line (python -m yolo_quantization_tpu_torch.cli)
   tools/             the GEMM-orientation probe (csrc/gemm_probe.cu) and the
                      forward's profiler breakdown
 """

@@ -2,19 +2,26 @@
 
 darknet's bilinear resize samples with align-corners (scale =
 (src-1)/(dst-1)); the letterbox places the resized image on a 0.5-gray
-canvas.  Decoding goes through PIL; the reference's native libjpeg/libpng
-decoder is not ported yet (ROADMAP queue 1.10).
+canvas.  Decoding goes through the native libjpeg/libpng decoder
+(``utils/native.py``) where it is built, and PIL otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from yolo_quantization_tpu_torch.utils import native
+
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Decode to float32 HWC RGB in [0, 1]."""
+    """Decode to float32 HWC RGB in [0, 1]: the native decoder (which runs
+    outside the GIL, so loader threads decode in parallel), else PIL for
+    other formats or where the library is absent."""
     from PIL import Image
 
+    arr = native.decode_image(path)
+    if arr is not None:
+        return arr
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
 

@@ -8,8 +8,8 @@ path), vectorized numpy on the host:
   - training augmentation (load_data_detection): a jittered aspect and
     scale, placement on a 0.5-gray canvas, HSV distortion, horizontal flip,
     and the boxes transformed and cleaned up alike.
-The fused per-pixel chain runs the numpy version; the native C++ kernel is
-ROADMAP queue 1.10.
+The fused per-pixel chain runs the native C++ kernel (``utils/native.py``)
+where it is built, and ``place_distort_flip_numpy`` otherwise.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from yolo_quantization_tpu_torch.data.image import (
     resize_bilinear_darknet,
 )
 from yolo_quantization_tpu_torch.train.loss import MAX_BOXES
+from yolo_quantization_tpu_torch.utils import native
 
 
 def read_image_list(path: str) -> list[str]:
@@ -168,7 +169,7 @@ def augment_detection(im: np.ndarray, boxes: np.ndarray, out_w: int, out_h: int,
     dexp = _rand_scale(rng, cfg.exposure)
     flip = cfg.flip and rng.random() < 0.5
 
-    canvas = place_distort_flip_numpy(im, out_w, out_h, nw, nh, dx, dy, dhue, dsat, dexp, flip)
+    canvas = native.augment_place(im, out_w, out_h, nw, nh, dx, dy, dhue, dsat, dexp, flip)
 
     out_boxes = []
     for cls, x, y, bw, bh in boxes:

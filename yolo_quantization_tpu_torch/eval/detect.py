@@ -4,10 +4,9 @@ prefilter, box correction, NMS and truth matching.
 The counterpart of ``yolo_quantization_tpu/eval/detect.py``: decode and
 top-k run on the engine's device in PyTorch; box correction, NMS (darknet's
 do_nms_obj and do_nms_sort) and the F1 harness's truth matching run on the
-host in numpy with darknet's semantics (the numpy forms of
-``yolo_quantization_tpu/utils/native.py``).  WordTree region heads need
-``core/tree.py`` (ROADMAP queue 1.12); the VOC/COCO/ImageNet result writers
-and ``voc_map`` of ``eval/valid.py`` are not ported yet (ROADMAP queue 1.4).
+host in numpy with darknet's semantics: the fallbacks of the native host
+runtime (``utils/native.py``), which the harnesses call.  WordTree region
+heads need ``core/tree.py`` (ROADMAP queue 1.12).
 """
 
 from __future__ import annotations

@@ -11,8 +11,10 @@ the benchmark harness of darknet's validate_detector_f1:
                           above-thresh dets > 0.1
     precision = TP/TP_FP, recall = TP/TP_FN, F1 = 2TP/(TP_FP+TP_FN)
 
-``recall_eval`` mirrors validate_detector_recall.  NMS and truth matching
-are the numpy versions in ``eval/detect.py``.
+``recall_eval`` mirrors validate_detector_recall.  Letterbox, NMS and
+truth matching go through the native host runtime (``utils/native.py``)
+where it is built, as the reference's harness does, and through the numpy
+versions otherwise.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from yolo_quantization_tpu_torch.data.image import letterbox, load_image_rgb
+from yolo_quantization_tpu_torch.data.image import load_image_rgb
 from yolo_quantization_tpu_torch.data.voc import label_path_for, read_boxes, read_image_list
 from yolo_quantization_tpu_torch.eval import detect
+from yolo_quantization_tpu_torch.utils import native
 
 THRESHOLDS = tuple(round(0.1 * i, 1) for i in range(1, 7))
 
@@ -60,7 +63,7 @@ def predict_batched(engine, paths: list[str], batch_size: int = 16):
         for k, p in enumerate(chunk):
             im = load_image_rgb(p)
             sizes.append(im.shape[:2])
-            batch[k] = letterbox(im, net.width, net.height)
+            batch[k] = native.letterbox(im, net.width, net.height)
         boxes, obj, cls = engine.predict(batch)
         for k in range(len(chunk)):
             h, w = sizes[k]
@@ -106,10 +109,10 @@ def f1_rows(
         for boxes, obj, truths in cache:
             keep = obj > thresh
             b, o = boxes[keep], obj[keep]
-            b, o, _ = detect.nms_obj(b, o, np.zeros((len(o), 1), np.float32), nms)
+            b, o, _ = native.nms_obj(b, o, np.zeros((len(o), 1), np.float32), nms)
             tp_fp += len(o)  # includes NMS-zeroed entries, as darknet counts
             if len(truths):
-                n_tp, iou_acc = detect.match_truths(b, o, truths[:, 1:5], thresh, iou_thresh)
+                n_tp, iou_acc = native.match_truths(b, o, truths[:, 1:5], thresh, iou_thresh)
                 tp += n_tp
                 tp_fn += len(truths)
                 avg_iou += iou_acc
@@ -137,7 +140,7 @@ def recall_eval(
     for p, (boxes, obj, _) in zip(paths, predict_batched(engine, paths, batch_size=1)):
         keep = obj > thresh
         b, o = boxes[keep], obj[keep]
-        b, o, _ = detect.nms_obj(b, o, np.zeros((len(o), 1), np.float32), nms)
+        b, o, _ = native.nms_obj(b, o, np.zeros((len(o), 1), np.float32), nms)
         live = o > thresh
         proposals += int(live.sum())
         for t in read_boxes(label_path_for(p)):

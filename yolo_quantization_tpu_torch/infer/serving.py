@@ -7,7 +7,8 @@ bucket), enqueues the device work, and a resolver thread copies results back
 and resolves the futures with box-corrected, NMS'd detections — so batch
 N+1 is gathered and enqueued while batch N is still on the device.
 ``uint8_io`` stages frames as uint8 pixel codes (4x fewer bytes to the
-device).  Letterbox and NMS are the port's numpy versions.
+device).  Letterbox and NMS go through the native host runtime
+(``utils/native.py``) where it is built, and numpy otherwise.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from yolo_quantization_tpu_torch.data.image import letterbox
 from yolo_quantization_tpu_torch.eval import detect
+from yolo_quantization_tpu_torch.utils import native
 
 
 @dataclass
@@ -142,7 +143,7 @@ class Server:
     def _dispatch_batch(self, reqs: list[_Request]):
         net = self.net
         letterboxed = list(
-            self._pre.map(lambda r: letterbox(r.image, net.width, net.height), reqs)
+            self._pre.map(lambda r: native.letterbox(r.image, net.width, net.height), reqs)
         )
         bucket = next(b for b in self.buckets if b >= len(reqs))
         if self.uint8_io:
@@ -153,7 +154,11 @@ class Server:
             batch = np.zeros((bucket, net.height, net.width, 3), np.float32)
             for i, x in enumerate(letterboxed):
                 batch[i] = x
-        resolve = self.engine.predict_async(batch)
+        if hasattr(self.engine, "predict_async"):
+            resolve = self.engine.predict_async(batch)
+        else:  # FloatEngine: predict returns finished host arrays
+            out = self.engine.predict(batch)
+            resolve = lambda: out  # noqa: E731
         while True:
             try:
                 self._inflight.put((reqs, resolve, bucket), timeout=0.25)
@@ -194,7 +199,7 @@ class Server:
             h, w, _ = r.image.shape
             b = detect.correct_boxes(boxes[i], w, h, net.width, net.height)
             keep = obj[i] > r.thresh
-            bb, oo, cc = detect.nms_obj(b[keep], obj[i][keep], cls[i][keep], r.nms)
+            bb, oo, cc = native.nms_obj(b[keep], obj[i][keep], cls[i][keep], r.nms)
             dets = [
                 Detection(box=bb[j], objectness=float(oo[j]), class_probs=cc[j])
                 for j in np.argsort(-oo)

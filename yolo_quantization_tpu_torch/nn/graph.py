@@ -488,14 +488,21 @@ def _act_fq(mode: ForwardMode):
     return fake_quant_learned if mode.learned_ranges else fake_quant
 
 
-def _track(x: torch.Tensor, st, mode: ForwardMode, qs, key: str, stat: str | None = None):
+def _hooked(fq_hook, kind: str, out: torch.Tensor, *inputs) -> torch.Tensor:
+    """``out``, or what ``fq_hook(kind, out, *inputs)`` returns in its place
+    (``layer_forward``'s hook on each fake-quant)."""
+    return out if fq_hook is None else fq_hook(kind, out, *inputs)
+
+
+def _track(x: torch.Tensor, st, mode: ForwardMode, qs, key: str, stat: str | None = None,
+           fq_hook=None):
     """Fake-quant x with the range ``st`` (EMA-updated first when the mode
     tracks ranges, the update written back to ``qs[key]``)."""
     lo, hi = st["min"], st["max"]
     if mode.update_ranges:
         lo, hi = ema_update(lo, hi, *_batch_range(x, stat or mode.range_stat))
         qs[key] = {"min": lo, "max": hi}
-    return _act_fq(mode)(x, lo, hi)
+    return _hooked(fq_hook, "act", _act_fq(mode)(x, lo, hi), x, lo, hi)
 
 
 # clamp-family activations that fold into the fake-quant clamp exactly
@@ -503,7 +510,7 @@ _FOLDABLE = {"relu6": (0.0, 6.0), "relu": (0.0, float("inf"))}
 
 
 def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode: ForwardMode,
-                  act_state: dict[str, torch.Tensor] | None):
+                  act_state: dict[str, torch.Tensor] | None, fq_hook=None):
     """One conv layer in any mode: (y, bn_stats | None, new_act_state | None).
 
     QAT: batch statistics from a float conv, BN folded into the weights with
@@ -543,6 +550,7 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
             wd = w_folded.detach()
             w_used = fake_quant_per_channel(w_folded, torch.amin(wd, dim=(0, 1, 2)),
                                             torch.amax(wd, dim=(0, 1, 2)))
+        w_used = _hooked(fq_hook, "w", w_used, w_folded)
     else:
         w_used = w_folded
 
@@ -569,7 +577,7 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
             # identity for every range this trainer produces; exact again
             # for a loaded range outside the activation's bounds
             lo, hi = L.clip(lo, *fold_bounds), L.clip(hi, *fold_bounds)
-        y = _act_fq(mode)(y, lo, hi)
+        y = _hooked(fq_hook, "act", _act_fq(mode)(y, lo, hi), y, lo, hi)
     return y, bn_stats, new_state
 
 
@@ -647,21 +655,24 @@ def apply_simple_layer(s: LayerSpec, p: dict[str, torch.Tensor] | None, x: torch
 
 def layer_forward(net: NetworkDef, i: int, params, x: torch.Tensor, outputs: list[torch.Tensor],
                   mode: ForwardMode, qs: dict | None, bn_stats: dict,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None, fq_hook=None) -> torch.Tensor:
     """Layer i of ``forward``: its output from its input ``x`` and the earlier
     layers' ``outputs`` (routes and shortcuts read them).  Range updates go
     into ``qs`` (a dict the caller owns), batch statistics into
     ``bn_stats``; dropout and the training crop draw from ``generator``.
     Running a layer on given inputs is how two forwards are compared layer
-    by layer."""
+    by layer.  ``fq_hook(kind, out, *inputs)``, where given, sees each
+    fake-quant the layer makes and returns the tensor used in its place:
+    ``("act", out, v, lo, hi)`` for an activation's, ``("w", out,
+    w_folded)`` for a conv's weights."""
     s = net.specs[i]
     key = f"act_{i}"
     if isinstance(s, ConvSpec):
         in_key = f"in_{i}"
         if mode.qat and in_key in qs:
             # float -> quant boundary: fake-quant the input
-            x = _track(x, qs[in_key], mode, qs, in_key)
-        y, stats, new_state = _conv_forward(s, params[i], x, mode, qs.get(key) if qs else None)
+            x = _track(x, qs[in_key], mode, qs, in_key, fq_hook=fq_hook)
+        y, stats, new_state = _conv_forward(s, params[i], x, mode, qs.get(key) if qs else None, fq_hook)
         if stats is not None:
             bn_stats[i] = stats
         if qs is not None and new_state is not None and key in qs:
@@ -673,10 +684,10 @@ def layer_forward(net: NetworkDef, i: int, params, x: torch.Tensor, outputs: lis
         return L.upsample_nearest(x, s.stride)
     if isinstance(s, RouteSpec):
         y = L.route_concat([outputs[j] for j in s.layers])
-        return _track(y, qs[key], mode, qs, key) if mode.qat and key in qs else y
+        return _track(y, qs[key], mode, qs, key, fq_hook=fq_hook) if mode.qat and key in qs else y
     if isinstance(s, ShortcutSpec):
         y = L.activate(L.shortcut_add(x, outputs[s.index]), s.activation)
-        return _track(y, qs[key], mode, qs, key) if mode.qat and key in qs else y
+        return _track(y, qs[key], mode, qs, key, fq_hook=fq_hook) if mode.qat and key in qs else y
     if isinstance(s, YoloSpec):
         return x  # decoded separately (eval/detect.py)
     if isinstance(s, SIMPLE_SPECS):

@@ -11,12 +11,18 @@ reference side's inputs), and its output, range update, batch statistics
 and vector-Jacobian product are compared; the cotangent of a layer is the
 reference's gradient of the yolo loss with respect to its output, so the
 gradients have the loss's scale, zeroed at outputs that sit on an
-activation's kink (``kink_safe_cotangent``).
+activation's kink (``kink_safe_cotangent``) or at an output where an ulp
+decides its fake-quant differently on the two devices, at its range's edge
+(``fake_quant_safe_cotangent``).  A folded weight at a rounding tie may take
+the next code on one device (``weight_code_flips`` holds each such code to
+its tie); the reference's pass then runs with the tested device's
+fake-quantized weights, so nothing is excluded for it.
 
-    python -m yolo_quantization_tpu_torch.tools.qat_check
+    python -m yolo_quantization_tpu_torch.tools.qat_check [--seeds N]
 
 runs the comparison of the card against the CPU for yolov3-tiny at 416x416
-(batch 4) in the float-train, EMA-QAT-train, QAT-eval and learned modes.
+(batch 4) in the float-train, EMA-QAT-train, QAT-eval and learned modes, on
+the synthetic batches of seeds 1..N.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolo_quantization_tpu_torch.core.quant import nudge_min_max
+from yolo_quantization_tpu_torch.core.quant import QUANT_MAX, QUANT_MIN, nudge_min_max
 from yolo_quantization_tpu_torch.nn.graph import (
     TRAINABLE,
     ConvSpec,
@@ -141,12 +147,115 @@ def kink_safe_cotangent(net, i: int, y_ref: torch.Tensor, cot: torch.Tensor) -> 
     return torch.where(near, torch.zeros_like(cot), cot.cpu()).to(cot.device)
 
 
+def fake_quant_inputs(net, i: int, params, x, outputs, mode: ForwardMode, quant_state,
+                      device) -> dict:
+    """What layer i's fake-quants see when it runs on ``device`` from the
+    given inputs (recorded through ``layer_forward``'s ``fq_hook``):
+    ``"act"``, the (value, min, max) its output fake-quant receives (the
+    last activation fake-quant it calls: a conv at a float -> quant boundary
+    fake-quantizes its input first), and ``"w"``, its conv's (folded,
+    fake-quantized) weights; None where the layer has none."""
+    rec = {"act": None, "w": None}
+    if not mode.qat:
+        return rec
+
+    def record(kind, out, *inputs):
+        rec[kind] = (*(t.detach() for t in inputs), out.detach()) if kind == "w" else \
+            tuple(t.detach() for t in inputs)
+        return out
+
+    dev = torch.device(device)
+    p = {i: {k: v.detach().to(dev) for k, v in params[i].items()}} if i in params else {}
+    outs = [None if o is None else o.detach().to(dev) for o in outputs[:i]]
+    qs = {k: {n: v.detach().to(dev) for n, v in st.items()} for k, st in quant_state.items()}
+    with torch.no_grad():
+        layer_forward(net, i, p, x.detach().to(dev), outs, mode, qs, {}, fq_hook=record)
+    if output_range_key(net, i, quant_state) is None:
+        rec["act"] = None
+    return rec
+
+
+def _gate(v: torch.Tensor, lo, hi) -> tuple[torch.Tensor, torch.Tensor]:
+    """The straight-through gate of ``v`` under the nudged range of [lo,
+    hi], and whether ``v`` lies within one float32 ulp (at the tensor's
+    largest magnitude) of one of the range's two edges."""
+    qp = nudge_min_max(lo, hi)
+    edges = [float((q - qp.zero_point).to(torch.float32) * qp.scale) for q in (QUANT_MIN, QUANT_MAX)]
+    ulp = float(np.spacing(np.float32(max(float(v.abs().max()), *map(abs, edges)))))
+    v = v.to(torch.float64)
+    return (v >= edges[0]) & (v <= edges[1]), ((v - edges[0]).abs() <= ulp) | ((v - edges[1]).abs() <= ulp)
+
+
+# a weight code may differ between the devices only where the reference's
+# folded weight lies within TIE_TOL of a code step of a rounding tie (the
+# devices' batch statistics, and so their folded weights, differ by about
+# 1e-6 relative: 1e-4 of a step at most), and then by one step
+TIE_TOL = 1e-3
+# the largest share of a layer's cotangent ``fake_quant_safe_cotangent`` may
+# zero: no more than the gradient rule itself lets fail
+MAX_EXCLUDED = 1 - SHARE
+
+
+def weight_step(w_folded: torch.Tensor, symmetric: bool) -> torch.Tensor:
+    """The per-output-channel code step of the weight fake-quant."""
+    if symmetric:
+        absmax = torch.amax(w_folded.abs(), dim=(0, 1, 2))
+        return torch.where(absmax > 0, absmax, torch.ones_like(absmax)) / 127
+    return nudge_min_max(torch.amin(w_folded, dim=(0, 1, 2)), torch.amax(w_folded, dim=(0, 1, 2))).scale
+
+
+def weight_code_flips(ref: dict, test: dict, symmetric: bool) -> int:
+    """The number of weight codes that differ between the two devices'
+    records (``fake_quant_inputs``).  Raises unless each differs by one
+    step and the reference's folded weight lies at that step's rounding
+    tie: there an ulp of the folded weight decides the code."""
+    if ref["w"] is None:
+        return 0
+    w, wr = (t.cpu().to(torch.float64) for t in ref["w"])
+    wt = test["w"][1].cpu().to(torch.float64)
+    step = weight_step(ref["w"][0].cpu(), symmetric).to(torch.float64)
+    d = wt - wr
+    flipped = d.abs() > step / 4  # ulp-level scale differences stay far below
+    one_step = (d.abs() - step).abs() <= TIE_TOL * step
+    at_tie = ((w - wr).abs() - step / 2).abs() <= TIE_TOL * step
+    toward = torch.sign(w - wr) == torch.sign(d)
+    bad = flipped & ~(one_step & at_tie & toward)
+    if bad.any():
+        k = tuple(int(v) for v in torch.nonzero(bad)[0])
+        raise AssertionError(f"{int(bad.sum())} of {bad.numel()} weight codes differ between the devices "
+                             f"off a rounding tie, e.g. at {k}: reference {float(wr[k]):.8e} (folded "
+                             f"{float(w[k]):.8e}), tested {float(wt[k]):.8e}, step {float(step[k[-1]]):.3e}")
+    return int(flipped.sum())
+
+
+def fake_quant_safe_cotangent(ref: dict, test: dict, cot: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """The cotangent of a layer, the same for both devices, zero at the
+    output elements where an ulp decides its output fake-quant differently
+    on the two (``fake_quant_inputs`` records): those whose straight-through
+    gate differs, or whose value differs between the devices and lies
+    within an ulp of its range's nudged edge on either; which side such an
+    element falls (and in learned mode which range gradient it feeds) is
+    decided by that ulp.  Raises if more than ``MAX_EXCLUDED`` of the
+    elements are zeroed.  Returns the cotangent and the share zeroed."""
+    if ref["act"] is None:
+        return cot, 0.0
+    (vr, *range_r), (vt, *range_t) = ([t.detach().cpu() for t in rec["act"]] for rec in (ref, test))
+    (gate_r, near_r), (gate_t, near_t) = _gate(vr, *range_r), _gate(vt, *range_t)
+    zero = (gate_r != gate_t) | ((vr != vt) & (near_r | near_t))
+    share = float(zero.to(torch.float64).mean())
+    if share > MAX_EXCLUDED:
+        raise AssertionError(f"{share:.3e} of the output's elements sit where an ulp decides the "
+                             f"fake-quant differently on the two devices (> {MAX_EXCLUDED:.0e})")
+    return torch.where(zero, torch.zeros_like(cot.cpu()), cot.cpu()).to(cot.device), share
+
+
 def layer_pass(net, i: int, params, x, outputs, mode: ForwardMode, quant_state, cotangent,
-               device) -> dict:
+               device, weights: torch.Tensor | None = None) -> dict:
     """Layer i on ``device`` from the given inputs: its output, range
     updates, batch statistics, and the VJP of ``cotangent`` into its
     parameters, its input, the earlier outputs it reads and (learned mode)
-    its ranges."""
+    its ranges.  ``weights``: fake-quantized conv weights to use in place of
+    the layer's own, with their straight-through gradient kept."""
     dev = torch.device(device)
     p = {i: {k: v.detach().to(dev).clone().requires_grad_(k in TRAINABLE)
              for k, v in params[i].items()}} if i in params else {}
@@ -159,7 +268,12 @@ def layer_pass(net, i: int, params, x, outputs, mode: ForwardMode, quant_state, 
               for n, v in st.items()} for k, st in quant_state.items()} if quant_state else None
     qs_in = dict(qs) if qs is not None else None
     bn_stats = {}
-    y = layer_forward(net, i, p, xin, outs, mode, qs, bn_stats)
+
+    def use_weights(kind, out, *inputs):
+        return out + (weights.to(dev) - out).detach() if kind == "w" else out
+
+    y = layer_forward(net, i, p, xin, outs, mode, qs, bn_stats,
+                      fq_hook=use_weights if weights is not None else None)
     out = {"y": y.detach(), "bn_stats": {k: tuple(t.detach() for t in v) for k, v in bn_stats.items()},
            "ranges": {k: {n: v.detach() for n, v in st.items()} for k, st in (qs or {}).items()
                       if qs_in is not None and st is not qs_in.get(k)}}
@@ -235,12 +349,25 @@ def compare_devices(net, params, x, truths, mode: ForwardMode, quant_state, ref_
     the reference's inputs and loss cotangents (``truths`` the batch's
     boxes, ``seen`` the images-seen count the loss reads).  Raises on the
     first tensor outside its rule; returns the smallest close share seen
-    per kind."""
+    per kind, under ``"excluded"`` the largest share of a layer's cotangent
+    that ``fake_quant_safe_cotangent`` zeroed, and under ``"code_flips"``
+    the weight codes, each at a rounding tie, that differ between the
+    devices.  The reference's pass of each layer runs with the tested
+    device's fake-quantized weights, so such a code moves no gradient."""
     x0, outputs, cots = reference_pass(net, params, x, mode, quant_state, ref_device, truths, seen)
     cots = [kink_safe_cotangent(net, i, y, c) for i, (y, c) in enumerate(zip(outputs, cots))]
-    worst = {"value": 1.0, "grad": 1.0}
+    worst = {"value": 1.0, "grad": 1.0, "excluded": 0.0, "code_flips": 0}
     qs_cpu = ({k: {n: v.detach().cpu() for n, v in st.items()} for k, st in quant_state.items()}
               if quant_state else None)
+    test_weights = [None] * len(net.specs)
+    for i in range(len(net.specs)):
+        x_in = x0 if i == 0 else outputs[i - 1]
+        ref, test = (fake_quant_inputs(net, i, params, x_in, outputs, mode, qs_cpu, dev)
+                     for dev in (ref_device, test_device))
+        worst["code_flips"] += weight_code_flips(ref, test, mode.symmetric_w)
+        test_weights[i] = test["w"][1] if test["w"] is not None else None
+        cots[i], share = fake_quant_safe_cotangent(ref, test, cots[i])
+        worst["excluded"] = max(worst["excluded"], share)
     # the input's fake-quant and range update
     ins = {}
     for dev in (test_device, ref_device):
@@ -256,9 +383,9 @@ def compare_devices(net, params, x, truths, mode: ForwardMode, quant_state, ref_
     for i in range(len(net.specs)):
         x_in = x0 if i == 0 else outputs[i - 1]
         got = layer_pass(net, i, params, x_in, outputs, mode, qs_cpu, cots[i], test_device)
-        ref = layer_pass(net, i, params, x_in, outputs, mode, qs_cpu, cots[i], ref_device)
+        ref = layer_pass(net, i, params, x_in, outputs, mode, qs_cpu, cots[i], ref_device, test_weights[i])
         shares = check_pass(net, i, mode, got, ref, qs_cpu)
-        for k in worst:
+        for k in shares:
             worst[k] = min(worst[k], shares[k])
         if log:
             log(f"    layer {i:3d} {type(net.specs[i]).__name__:12s}: output, "
@@ -267,21 +394,28 @@ def compare_devices(net, params, x, truths, mode: ForwardMode, quant_state, ref_
     return worst
 
 
-def main() -> int:
-    """The card against the CPU, yolov3-tiny at 416x416, batch 4."""
+def main(argv: list[str] | None = None) -> int:
+    """The card against the CPU, yolov3-tiny at 416x416, batch 4, on the
+    synthetic batches of seeds 1..--seeds (default 1)."""
+    import argparse
+
     from yolo_quantization_tpu_torch.models import zoo
     from yolo_quantization_tpu_torch.nn.graph import init_params_numpy, params_to_torch
 
     from yolo_quantization_tpu_torch.tools.profile_train import synthetic_batch
 
+    ap = argparse.ArgumentParser(prog="python -m yolo_quantization_tpu_torch.tools.qat_check")
+    ap.add_argument("--seeds", type=int, default=1, help="batches of seeds 1..N")
+    args = ap.parse_args(argv)
     net = zoo.yolov3_tiny(classes=5)
     params = params_to_torch(init_params_numpy(0, net), "cpu")
-    images, truths = synthetic_batch(np.random.default_rng(1), 4, 416, 5)
-    x, t = torch.from_numpy(images), torch.from_numpy(truths)
-    qs = calibrated_ranges(net, params, x)
-    for name in ("float-train", "ema-qat-train", "qat-eval", "learned"):
-        worst = compare_devices(net, params, x, t, MODES[name], qs, "cpu", "cuda")
-        print(f"{name}: every layer within the rules; smallest close shares {worst}")
+    for seed in range(1, args.seeds + 1):
+        images, truths = synthetic_batch(np.random.default_rng(seed), 4, 416, 5)
+        x, t = torch.from_numpy(images), torch.from_numpy(truths)
+        qs = calibrated_ranges(net, params, x)
+        for name in ("float-train", "ema-qat-train", "qat-eval", "learned"):
+            worst = compare_devices(net, params, x, t, MODES[name], qs, "cpu", "cuda")
+            print(f"seed {seed} {name}: every layer within the rules; {worst}", flush=True)
     return 0
 
 
