@@ -112,7 +112,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      (python -m yolo_quantization_tpu_torch.cli); then the card's busy
      share of one valid run under utils/profiling.trace, valid's host
      stages per image and native against numpy letterbox and nms_sort,
-     printed with the card's name and power limit.
+     printed with the card's name and power limit;
+ 16. parallelism (yolo_quantization_tpu_torch/tools/parallel_check.py): on a
+     one-rank NCCL group, the Trainer with DDP and with FSDP2 against the
+     plain Trainer (yolov3-tiny 416, batch 16, 2 float + 4 EMA-QAT steps),
+     params and ranges bit for bit, and their ms per step; an FSDP2
+     checkpoint written whole and read back through export; two gloo ranks
+     on the one card (8 rows each) against one process on 16 (float steps'
+     loss rel 2e-4; the EMA-QAT step's against one process on reversed
+     rows), DDP and FSDP2 where gloo carries it; TP: K1 on 2 and 4 channel
+     slices of yolov3-tiny and yolov3 (416) concatenated, every layer equal
+     to Engine's, K1's time per slice against the whole conv, and
+     make_tp_engine on the one-rank group equal to Engine.predict (its K1
+     launches counted);
+ 17. WordTree, classifier, segmenter
+     (yolo_quantization_tpu_torch/tools/wordtree_check.py): yolov2-tiny's
+     topology at 416 with a region head over a seeded 9,418-node tree (47,115
+     channels in the last conv) from cfg text with tree= through a
+     quantized .weights, convert and Engine, every integer layer equal to
+     the CPU engine's, the region layer, joint probabilities and
+     tree_top_probs' nodes against float64 from that head, predict's K1
+     launches, decode and tree_top_probs per image; 3 EMA-QAT steps of the
+     tree region loss at batch 8, card vs CPU; darknet19 (224, 1000
+     classes) under ClassifierTrainer at batch 16, flat and with a
+     1,000-leaf tree, card vs CPU, evaluate_top_k; SegmenterTrainer (416,
+     21 classes, batch 4), card vs CPU, predict.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -1734,14 +1758,26 @@ def main(argv: list[str]) -> int:
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     log("phase 15: the command line on the card (yolov3-tiny 416, 5 classes, 48 images)")
     cli_launches = phase_cli(counters, card)
+    from yolo_quantization_tpu_torch.tools import parallel_check, wordtree_check
+
+    log("phase 16: parallelism (one-rank NCCL DDP/FSDP2, two gloo ranks on the card, TP)")
+    t0 = time.perf_counter()
+    tp_launches = parallel_check.run(card)["launches"]
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+    log("phase 17: the WordTree detector, classifier and segmenter, card vs CPU")
+    t0 = time.perf_counter()
+    tree_launches = wordtree_check.run(card)["launches"]
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
     log(f"  main-path K1 launches: yolov3-tiny server {launches[0]}, yolov3 server {v3_launches[0]}, "
-        f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}")
+        f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}, "
+        f"TP engine {tp_launches}, WordTree engine {tree_launches}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:173",
-                 launches[0] + v3_launches[0] + v2_launches[0] + cli_launches, errors.worst["qconv"]),
+                 launches[0] + v3_launches[0] + v2_launches[0] + cli_launches + tp_launches + tree_launches,
+                 errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),

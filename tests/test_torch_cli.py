@@ -154,13 +154,28 @@ def test_parser_has_the_jax_subcommands_and_options():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", *CPU, "--train-list", "x", "--data-parallel"], "1.11"),
-    (["train", *CPU, "--train-list", "x", "--fsdp"], "1.11"),
+    (["train", *CPU, "--data-parallel"], "DP over 1 devices (cpu)"),
+    (["train", *CPU, "--fsdp"], "FSDP over 1 devices: 100.0% of param bytes sharded"),
     (["bench"], "1.13"),
 ])
-def test_unported_parts_exit_naming_the_roadmap(argv, item):
-    with pytest.raises(SystemExit, match=re.escape(f"ROADMAP queue {item}")):
-        main(argv)
+def test_unported_parts_exit_naming_the_roadmap(argv, item, trained, tmp_path, capsys):
+    """``bench`` exits naming its ROADMAP item.  ``train --data-parallel``
+    and ``--fsdp`` are ported: without torchrun the process group is this
+    one process, which trains two steps, prints the JAX CLI's lines (the
+    FSDP report too), checkpoints and leaves no group behind (the two-rank
+    cases are in ``test_torch_distributed.py``)."""
+    if argv[0] == "bench":
+        with pytest.raises(SystemExit, match=re.escape(f"ROADMAP queue {item}")):
+            main(argv)
+        return
+    import torch.distributed as dist
+
+    _, lst, _, _, _ = trained
+    main([*argv, "--train-list", lst, "--backup-dir", str(tmp_path), "--batch-size", "2",
+          "--max-batches", "2", "--workers", "2", "--quant-start", "1"])
+    out = capsys.readouterr().out
+    assert item in out and "2: loss" in out and "training done" in out, out
+    assert sorted(os.listdir(tmp_path)) == ["2"] and not dist.is_initialized()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the failure where there is no GPU")

@@ -228,9 +228,19 @@ def test_load_cfg_reads_the_file(tmp_path):
     assert spec_rows(tcfg.load_cfg(str(path))[0]) == spec_rows(tzoo.yolov2_tiny())
 
 
-def test_tree_option_raises_naming_the_queue():
+def test_tree_option_raises_naming_the_queue(tmp_path):
+    """``tree=`` is read relative to the cfg's directory (``core/tree.py``,
+    the JAX importer's tree); a missing file raises."""
+    from yolo_quantization_tpu.models import cfg as jcfg
+
+    (tmp_path / "data").mkdir()
+    (tmp_path / "data" / "9k.tree").write_text("a -1\nb -1\nc 0\nd 0\ne 1\n")
     text = "[net]\nwidth=32\nheight=32\n[softmax]\ntree=data/9k.tree\n"
-    with pytest.raises(NotImplementedError, match="queue 1.12"):
+    tree = tcfg.parse_cfg(text, base_dir=str(tmp_path))[0].specs[0].tree
+    jtree = jcfg.parse_cfg(text, base_dir=str(tmp_path))[0].specs[0].tree
+    assert (tree.n, tree.groups, tree.names) == (jtree.n, jtree.groups, jtree.names)
+    np.testing.assert_array_equal(tree.parent, jtree.parent)
+    with pytest.raises(FileNotFoundError):
         tcfg.parse_cfg(text)
 
 

@@ -388,8 +388,9 @@ def test_layer_kinds_outside_the_slice_raise(extra, kind):
 
 
 def test_region_head_decode_raises():
-    """A region head decodes as the JAX package's does; a WordTree region
-    head raises naming the queue item of ``core/tree.py``."""
+    """A region head decodes as the JAX package's does, a WordTree region
+    head too (joint path probabilities; the cases are in
+    ``test_torch_tree.py``)."""
     from yolo_quantization_tpu.eval import detect as jdetect
     from yolo_quantization_tpu.nn import graph as JG
 
@@ -401,10 +402,18 @@ def test_region_head_decode_raises():
     for a, b in zip(jdetect.decode_all_heads([jnp.asarray(out)], jnet),
                     tdetect.decode_all_heads([torch.from_numpy(out)], net)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), **DECODE_TOL)
-    tree_net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1),), classes=2, num=1, tree="t"),),
+    from yolo_quantization_tpu.core.tree import parse_tree as jparse
+    from yolo_quantization_tpu_torch.core.tree import parse_tree
+
+    lines = ["a -1", "b -1", "c 0"]
+    tree_out = np.random.default_rng(1).uniform(0.05, 0.95, (2, 3, 4, 8)).astype(np.float32)
+    jnet = JG.NetworkDef(specs=(JG.RegionSpec(anchors=((1, 1),), classes=3, num=1, tree=jparse(lines)),),
+                         width=32, height=32)
+    tree_net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1),), classes=3, num=1, tree=parse_tree(lines)),),
                             width=32, height=32)
-    with pytest.raises(NotImplementedError, match="queue 1.12"):
-        tdetect.decode_all_heads([torch.zeros(1, 1, 1, 7)], tree_net)
+    for a, b in zip(jdetect.decode_all_heads([jnp.asarray(tree_out)], jnet),
+                    tdetect.decode_all_heads([torch.from_numpy(tree_out)], tree_net)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **DECODE_TOL)
 
 
 @pytest.mark.cuda

@@ -30,7 +30,10 @@ def test_every_module_imports_with_jax_blocked():
               "nn.layers", "train.loss", "eval.detect",
               # the command line and the modules it joins
               "cli", "cli.main", "cli.__main__", "eval.valid", "utils.native", "utils.profiling",
-              "data.video"):
+              "data.video",
+              # parallelism, WordTree and the other trainers
+              "parallel", "parallel.distributed", "parallel.mesh", "parallel.fsdp", "parallel.tp",
+              "core.tree", "train.classify", "train.segment"):
         assert f"yolo_quantization_tpu_torch.{m}" in mods
     code = "\n".join([
         "import importlib, sys",

@@ -175,9 +175,20 @@ def test_crop_at_training_time_is_a_window():
 
 
 def test_tree_specs_raise_naming_the_queue():
-    for spec in (TG.SoftmaxSpec(tree="t"), TG.RegionSpec(anchors=((1, 1),), num=1, classes=2, tree="t")):
-        with pytest.raises(NotImplementedError, match="1.12"):
-            TG.apply_simple_layer(spec, None, torch.zeros((1, 1, 1, 7)))
+    """The WordTree softmax and region specs run and equal the JAX layers
+    (the full cases are in ``test_torch_tree.py``)."""
+    from yolo_quantization_tpu.core.tree import parse_tree as jparse
+    from yolo_quantization_tpu_torch.core.tree import parse_tree
+
+    lines = ["a -1", "b -1", "c 0", "d 0", "e 0"]
+    x = np.random.default_rng(0).standard_normal((2, 1, 1, 10)).astype(np.float32)
+    for ts, js in ((TG.SoftmaxSpec(tree=parse_tree(lines)), JG.SoftmaxSpec(tree=jparse(lines))),
+                   (TG.RegionSpec(anchors=((1, 1),), num=1, classes=5, tree=parse_tree(lines)),
+                    JG.RegionSpec(anchors=((1, 1),), num=1, classes=5, tree=jparse(lines)))):
+        xs = x[..., :5] if isinstance(ts, TG.SoftmaxSpec) else x
+        np.testing.assert_allclose(TG.apply_simple_layer(ts, None, torch.from_numpy(xs)).numpy(),
+                                   np.asarray(JG.apply_simple_layer(js, None, jnp.asarray(xs))),
+                                   rtol=1e-5, atol=1e-7)
 
 
 def test_simple_layers_run_in_every_forward_mode():

@@ -75,7 +75,8 @@ MODES = ("float-train", "ema-qat-train", "qat-eval", "learned", "frozen")
 
 
 def jax_mode(mode: TG.ForwardMode) -> JG.ForwardMode:
-    return JG.ForwardMode(**{f: getattr(mode, f) for f in mode.__dataclass_fields__})
+    # the port's mode adds the data-parallel group, which JAX's step takes from its mesh
+    return JG.ForwardMode(**{f: getattr(mode, f) for f in JG.ForwardMode.__dataclass_fields__})
 
 
 def jax_layer(net, i, p, x, outputs, mode, qs):
@@ -319,8 +320,7 @@ def test_bf16_forward_tracks_jax_bf16():
 
 def test_simple_layers_raise_naming_the_roadmap():
     """The extended float layers run in the forward (the yolov2/yolov1
-    slice) and equal the JAX forward; a WordTree softmax raises naming the
-    queue item of ``core/tree.py``."""
+    slice) and equal the JAX forward; a WordTree softmax too."""
     net = TG.NetworkDef(specs=(TG.ConvSpec(4), TG.AvgPoolSpec()), width=8, height=8)
     jnet = JG.NetworkDef(specs=(JG.ConvSpec(4), JG.AvgPoolSpec()), width=8, height=8)
     params_np = TG.init_params_numpy(0, net)
@@ -332,10 +332,15 @@ def test_simple_layers_raise_naming_the_roadmap():
     jy1 = JG.apply_simple_layer(jnet.specs[1], None, jy0)
     for got, want in zip(aux["outputs"], (jy0, jy1)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
-    tree = TG.NetworkDef(specs=(TG.ConvSpec(4), TG.SoftmaxSpec(tree="t")), width=8, height=8)
-    with pytest.raises(NotImplementedError, match="queue 1.12"):
-        TG.forward(tree, TG.params_to_torch(TG.init_params_numpy(0, tree), "cpu"),
-                   torch.zeros(1, 8, 8, 3), TG.ForwardMode())
+    from yolo_quantization_tpu.core.tree import parse_tree as jparse
+    from yolo_quantization_tpu_torch.core.tree import parse_tree
+
+    lines = ["a -1", "b -1", "c 0", "d 0"]
+    tree = TG.NetworkDef(specs=(TG.ConvSpec(4), TG.SoftmaxSpec(tree=parse_tree(lines))), width=8, height=8)
+    heads, aux = TG.forward(tree, TG.params_to_torch(params_np, "cpu"), torch.from_numpy(x), TG.ForwardMode(),
+                            return_outputs=True)
+    want = JG.apply_simple_layer(JG.SoftmaxSpec(tree=jparse(lines)), None, jy0)
+    np.testing.assert_allclose(aux["outputs"][1].numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 def test_qat_forward_requires_quant_state():

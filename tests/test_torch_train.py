@@ -104,8 +104,8 @@ def test_total_loss_over_tiny_heads_matches_jax():
 def test_region_and_detection_losses_raise_naming_the_roadmap():
     """The region and detection losses run through ``total_loss`` since the
     yolov2/yolov1 slice and equal the reference's (the full cases are in
-    ``test_torch_v2.py``); a WordTree region head raises naming the queue
-    item of ``core/tree.py``."""
+    ``test_torch_v2.py``); a WordTree region head's loss too (its cases are
+    in ``test_torch_tree.py``)."""
     rng = np.random.default_rng(0)
     truths = make_truths(2, COLLIDING)
     heads = [rng.uniform(0.05, 0.95, (2, 3, 3, 2 * 9)).astype(np.float32),
@@ -118,10 +118,19 @@ def test_region_and_detection_losses_raise_naming_the_roadmap():
         if G is JG:
             want = got
     assert got == pytest.approx(want, rel=1e-5)
-    tree = TG.NetworkDef(specs=(TG.RegionSpec(anchors=((1, 1),), classes=2, num=1, tree="t"),),
-                         width=32, height=32)
-    with pytest.raises(NotImplementedError, match="queue 1.12"):
-        tloss.total_loss([torch.zeros(1, 1, 1, 7)], torch.zeros(1, MAX_BOXES, 5), tree)
+    from yolo_quantization_tpu.core.tree import parse_tree as jparse
+    from yolo_quantization_tpu_torch.core.tree import parse_tree
+
+    lines = ["a -1", "b -1", "c 0", "d 0"]
+    head = rng.uniform(0.05, 0.95, (2, 3, 3, 2 * 9)).astype(np.float32)
+    for G, lib, cast, tree in ((JG, jloss, jnp.asarray, jparse(lines)), (TG, tloss, torch.from_numpy,
+                                                                          parse_tree(lines))):
+        net = G.NetworkDef(specs=(G.RegionSpec(anchors=((1, 1), (2, 2)), classes=4, num=2, tree=tree),),
+                           width=32, height=32)
+        got = float(lib.total_loss([cast(head)], cast(truths), net, seen=100)[0])
+        if G is JG:
+            want = got
+    assert got == pytest.approx(want, rel=1e-5)
 
 
 def small_net(G, size=32):

@@ -12,7 +12,11 @@ Models come from darknet cfg files (``models/cfg.py``) or the built-in zoo
 ``.weights`` files (``models/darknet_weights.py``), integer programs
 (``.npz``) or the port's checkpoint directories (``train/checkpoint.py``).
 Every subcommand runs on the GPU unless ``--device cpu`` is given, and
-fails where there is no GPU.
+fails where there is no GPU.  ``train --data-parallel`` (or ``--fsdp``)
+trains over every rank of a process group, one rank per device, started
+by torchrun (``torchrun --nproc-per-node N -m yolo_quantization_tpu_torch.cli
+train --data-parallel ...``): NCCL on the cards, gloo with ``--device
+cpu``; without torchrun the group is this one process.
 """
 
 from __future__ import annotations
@@ -24,8 +28,6 @@ import time
 import numpy as np
 import torch
 
-ROADMAP_PARALLEL = ("is not ported yet: multi-device training is ROADMAP queue 1.11 "
-                    "(DDP, FSDP2, DTensor); the port never trains on one device in its place")
 ROADMAP_BENCH = ("bench: the H100 benchmark (latency percentiles, images/s) is ROADMAP queue "
                  "1.13 and not written yet; the TPU bench.py does not run on the port")
 
@@ -110,16 +112,37 @@ def _engine_from(args, net):
 
 
 def cmd_train(args):
+    import torch.distributed as dist
+
+    from yolo_quantization_tpu_torch.parallel import distributed
+    from yolo_quantization_tpu_torch.parallel import mesh as pmesh
+
+    device = _device(args)
+    mesh, owns_group = None, False
+    if args.data_parallel or args.fsdp:
+        owns_group = not dist.is_initialized()
+        distributed.initialize(device=device)
+        device = pmesh.rank_device(device)
+        mesh = distributed.global_mesh(device=device)
+    try:
+        _train(args, device, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh):
+    """The training loop of ``cmd_train``; with a mesh every rank runs it on
+    its rows of each global batch, and rank 0 alone prints and writes."""
     import dataclasses
     import random
 
     from yolo_quantization_tpu_torch.data.loader import BatchLoader
     from yolo_quantization_tpu_torch.data.voc import DetectionDataset
+    from yolo_quantization_tpu_torch.parallel import mesh as pmesh
     from yolo_quantization_tpu_torch.train import checkpoint as ckpt
     from yolo_quantization_tpu_torch.train.qat import Trainer, multiscale_resolutions
 
-    if args.data_parallel or args.fsdp:
-        raise SystemExit(f"train --{'fsdp' if args.fsdp else 'data-parallel'} {ROADMAP_PARALLEL}")
     net, tcfg = _load_model(args)
     overrides = {"batch_size": args.batch_size, "max_batches": args.max_batches,
                  "quant_start_step": args.quant_start,
@@ -128,44 +151,56 @@ def cmd_train(args):
     if args.prune:
         tcfg = dataclasses.replace(tcfg, prune=True, prune_threshold=args.prune_threshold)
 
-    trainer = Trainer(net, tcfg, device=_device(args))
+    trainer = Trainer(net, tcfg, device=device, mesh=mesh, fsdp=args.fsdp)
+    rank, world = pmesh.rank_world(trainer.group)
+    say = print if rank == 0 else (lambda *a, **k: None)
     start = 0
     if args.resume and ckpt.latest_step(args.backup_dir) is not None:
         trainer.state = ckpt.restore_checkpoint(args.backup_dir, trainer.state)
         start = int(trainer.state.step)
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
 
     ds = DetectionDataset(args.train_list, net.width, net.height, augment=True)
+    # every rank loads the same global batches (one seed) and takes its rows
     loader = BatchLoader(ds, tcfg.batch_size, workers=args.workers,
                          pin_memory=trainer.device.type == "cuda")
-    print(f"training {len(net.specs)}-layer net at {net.width}x{net.height}, "
-          f"batch {tcfg.batch_size}, {len(ds)} images, single device ({trainer.device})")
+    where = f"DP over {world} devices ({trainer.device.type})" if mesh else f"single device ({trainer.device})"
+    say(f"training {len(net.specs)}-layer net at {net.width}x{net.height}, "
+        f"batch {tcfg.batch_size}, {len(ds)} images, {where}")
+    if args.fsdp:
+        from yolo_quantization_tpu_torch.parallel import fsdp
+
+        rep = fsdp.shard_report(trainer.state.params, world)
+        say(f"FSDP over {world} devices: {rep['sharded_fraction'] * 100:.1f}% of param bytes sharded "
+            f"({rep['sharded_bytes']} sharded / {rep['replicated_bytes']} replicated)")
     resolutions = multiscale_resolutions() if args.multiscale else None
+    # one seed on every rank: the ranks switch to the same resolution
+    scale_rng = random.Random(0)
     avg_loss = None
     try:
         for step in range(start, tcfg.max_batches):
             if resolutions and step % 10 == 0:
-                dim = random.choice(resolutions)
+                dim = scale_rng.choice(resolutions)
                 ds.set_size(dim, dim)
                 if step % 100 == 0:
-                    print(f"resolution -> {dim}")
-            images, truths = loader.next()
+                    say(f"resolution -> {dim}")
+            images, truths = pmesh.shard_batch(trainer.group, *loader.next())
             t0 = time.time()
             metrics = trainer.step(images, truths)
             loss = float(metrics["loss"])  # waits for the step
             avg_loss = loss if avg_loss is None else 0.9 * avg_loss + 0.1 * loss
             prune_info = (f", sparsity {float(metrics['sparsity']):.3f}"
                           if "sparsity" in metrics else "")
-            print(f"{step + 1}: loss {loss:.4f}, avg {avg_loss:.4f}, "
-                  f"lr {float(metrics['lr']):.6f}, {time.time() - t0:.2f}s, "
-                  f"{(step + 1) * tcfg.batch_size} images{prune_info}")
+            say(f"{step + 1}: loss {loss:.4f}, avg {avg_loss:.4f}, "
+                f"lr {float(metrics['lr']):.6f}, {time.time() - t0:.2f}s, "
+                f"{(step + 1) * tcfg.batch_size} images{prune_info}")
             if ckpt.checkpoint_cadence(step + 1):
                 ckpt.save_checkpoint(args.backup_dir, trainer.state)
-                print(f"checkpointed step {step + 1} -> {args.backup_dir}")
+                say(f"checkpointed step {step + 1} -> {args.backup_dir}")
     finally:
         loader.close()
     ckpt.save_checkpoint(args.backup_dir, trainer.state)
-    print("training done")
+    say("training done")
 
 
 def cmd_detect(args):
@@ -510,10 +545,10 @@ def build_parser():
     sp.add_argument("--multiscale", action="store_true",
                     help="random input resolution in {320..608} every 10 batches")
     sp.add_argument("--data-parallel", action="store_true",
-                    help="data-parallel training (ROADMAP queue 1.11; not ported yet, exits)")
+                    help="data-parallel training (DDP) over the ranks torchrun starts, one per "
+                         "device")
     sp.add_argument("--fsdp", action="store_true",
-                    help="sharded params and optimizer state (ROADMAP queue 1.11; not ported "
-                         "yet, exits)")
+                    help="data-parallel training with params and optimizer state sharded (FSDP2)")
     sp.add_argument("--freeze-ranges-after", type=int, default=None,
                     help="freeze the EMA activation ranges N QAT steps after quant_start")
     sp.add_argument("--prune", action="store_true",

@@ -5,8 +5,9 @@ The counterpart of ``yolo_quantization_tpu/eval/detect.py``: decode and
 top-k run on the engine's device in PyTorch; box correction, NMS (darknet's
 do_nms_obj and do_nms_sort) and the F1 harness's truth matching run on the
 host in numpy with darknet's semantics: the fallbacks of the native host
-runtime (``utils/native.py``), which the harnesses call.  WordTree region
-heads need ``core/tree.py`` (ROADMAP queue 1.12).
+runtime (``utils/native.py``), which the harnesses call.  A WordTree region
+head decodes to joint path probabilities on the device, and
+``tree_top_probs`` picks each detection's node on the host.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yolo_quantization_tpu_torch.core.tree import hierarchy_predictions, hierarchy_top_prediction
 from yolo_quantization_tpu_torch.nn.graph import DetectionSpec, RegionSpec, YoloSpec
 
 
@@ -54,9 +56,10 @@ def decode_head(
 def decode_region_head(out: torch.Tensor, spec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode a YOLOv2 [region] head from its forward output (x, y and
     objectness already logistic, classes already softmaxed).  Region
-    anchors are in feature-grid units: bw = exp(tw) * anchor_w / W."""
-    if spec.tree is not None:
-        raise NotImplementedError(_TREE_UNPORTED)
+    anchors are in feature-grid units: bw = exp(tw) * anchor_w / W.  With a
+    WordTree the classes become joint path probabilities
+    (get_region_detections' hierarchy_predictions, src/region_layer.c:414-416);
+    ``tree_top_probs`` then picks each detection's node on the host."""
     n, h, w, _ = out.shape
     a = spec.num
     r = out.reshape(n, h, w, a, 5 + spec.classes)
@@ -68,20 +71,29 @@ def decode_region_head(out: torch.Tensor, spec) -> tuple[torch.Tensor, torch.Ten
     bw = torch.exp(r[..., 2]) * anchors[:, 0].reshape(1, 1, 1, a) / w
     bh = torch.exp(r[..., 3]) * anchors[:, 1].reshape(1, 1, 1, a) / h
     boxes = torch.stack([bx, by, bw, bh], dim=-1)
+    cls = r[..., 5:]
+    if spec.tree is not None:
+        cls = hierarchy_predictions(cls, spec.tree)
     return (
         boxes.reshape(n, h * w * a, 4),
         r[..., 4].reshape(n, h * w * a),
-        r[..., 5:].reshape(n, h * w * a, spec.classes),
+        cls.reshape(n, h * w * a, spec.classes),
     )
 
 
-_TREE_UNPORTED = "WordTree (tree=) region heads need core/tree.py, not ported yet (ROADMAP queue 1.12)"
-
-
-def tree_top_probs(cls, obj, tree, thresh: float, tree_thresh: float = 0.5):
-    """The WordTree region head's per-detection class choice; it needs
-    ``core/tree.py``, which is not ported yet."""
-    raise NotImplementedError(_TREE_UNPORTED)
+def tree_top_probs(cls: np.ndarray, obj: np.ndarray, tree, thresh: float,
+                   tree_thresh: float = 0.5) -> np.ndarray:
+    """Sparse per-detection class probabilities of a WordTree region head
+    (the reference's map-less tree branch, src/region_layer.c:424-426): for
+    each detection above ``thresh``, the greedy descent over the joint
+    probabilities ``decode_region_head`` gives, and the detection's
+    objectness on the node it picks."""
+    cls = np.asarray(cls)
+    obj = np.asarray(obj)
+    out = np.zeros_like(cls)
+    for d in np.nonzero(obj > thresh)[0]:
+        out[d, hierarchy_top_prediction(cls[d], tree, tree_thresh)] = obj[d]
+    return out
 
 
 def decode_detection_head(out: torch.Tensor, spec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -192,7 +192,7 @@ def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tens
 def build_forward(program: IntProgram, return_outputs: bool = False, *,
                   use_s2d: bool = False, carrier: str = "int8",
                   dynamic_input: bool = False, exact_leaky: bool = False,
-                  fuse_pool: bool = True):
+                  fuse_pool: bool = True, shard=None):
     """Return fn(arrays, x) -> heads, or (heads, per_layer_outputs) with
     ``return_outputs``.  ``arrays`` is ``device_arrays(program, device)``;
     x is a float32 [0,1] or uint8 NHWC batch on the same device.
@@ -206,6 +206,11 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
     ``dynamic_input`` quantizes the input per image and rebuilds layer 0's
     bias and m per image; ``exact_leaky`` is darknet's double-rounded leaky;
     ``carrier="int16"`` runs every conv with 16-bit operands (same bits).
+    ``shard(i, run)``, where given, runs quantized conv i: ``run(a)`` is the
+    conv on layer arrays ``a`` (its weights, bias, m and zero points, or a
+    slice of their output channels), and ``shard`` returns the whole
+    output: tensor parallelism runs it on channel shards and joins them
+    (``parallel/tp.py``).
     """
     if carrier not in ("int8", "int16"):
         raise ValueError(f"unsupported conv carrier {carrier!r}")
@@ -267,8 +272,7 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
         if dynamic_input:
             scale, zp = _dynamic_input_qp(x)
             x = _quantize_input_dynamic(x, scale, zp)
-            bias, m = _dyn_bias_m(arrays[0], cfg[0].symmetric_w, k_elems0, scale, zp)
-            dyn = ((zp - 128.0).to(torch.int32), bias, m)
+            dyn = (scale, zp)
         elif x.dtype != torch.int8:
             x = _quantize_input(x, program.in_scale, program.in_zp)
         outputs = []
@@ -281,9 +285,13 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 outputs.append(outputs[-1])
                 continue
             if c.kind == "qconv":
-                a = arrays[i]
-                zp, bias, m = dyn if (dyn is not None and i == 0) else (x_zp[i], a["bias_i32"], a["m"])
-                y = conv(i, c, a, x, zp, bias, m)
+                def run(a, i=i, c=c, x=x):
+                    if dyn is not None and i == 0:
+                        bias, m = _dyn_bias_m(a, c.symmetric_w, k_elems0, *dyn)
+                        return conv(i, c, a, x, (dyn[1] - 128.0).to(torch.int32), bias, m)
+                    return conv(i, c, a, x, x_zp[i], a["bias_i32"], a["m"])
+
+                y = run(arrays[i]) if shard is None else shard(i, run)
                 skip_next = i in fused or i in s2d
                 if c.quant_stop:
                     y = _dequant_i8(y, c.out_scale, c.out_zp)

@@ -5,14 +5,15 @@ dialect (every section kind of the graph, the per-layer ``quantized=`` /
 ``quant_stop=`` / ``first_time=`` flags, the [net] training options) read
 into the port's specs and ``train/qat.py::TrainConfig``.  Relative layer
 references ([route] layers=-4, [shortcut] from=-3) become absolute indices.
-A ``tree=`` option (WordTree softmax and region heads) raises: it needs
-``core/tree.py`` (ROADMAP queue 1.12).
+A ``tree=`` option (WordTree softmax and region heads) is read with
+``core/tree.py::read_tree``, relative to the cfg's directory.
 """
 
 from __future__ import annotations
 
 import os
 
+from yolo_quantization_tpu_torch.core.tree import read_tree
 from yolo_quantization_tpu_torch.nn.graph import (
     ActivationSpec,
     AvgPoolSpec,
@@ -75,14 +76,14 @@ def _floats(v: str) -> tuple[float, ...]:
 
 
 def _load_tree(opts: dict[str, str], base_dir: str | None):
-    """A section's ``tree=`` option: None when absent; a WordTree needs
-    ``core/tree.py``, which is not ported yet."""
-    del base_dir
-    if not opts.get("tree"):
+    """A section's ``tree=`` option (src/parser.c:223-224, 323-324): None
+    when absent; a relative path is resolved against ``base_dir``."""
+    tree_file = opts.get("tree")
+    if not tree_file:
         return None
-    raise NotImplementedError(
-        f"tree={opts['tree']}: WordTree softmax and region heads need core/tree.py, which is "
-        "not ported yet (ROADMAP queue 1.12)")
+    if base_dir and not os.path.isabs(tree_file):
+        tree_file = os.path.join(base_dir, tree_file)
+    return read_tree(tree_file)
 
 
 def parse_cfg(text: str, base_dir: str | None = None) -> tuple[NetworkDef, TrainConfig]:

@@ -111,3 +111,33 @@ def v2_program(classes: int = 20, size: int = 416, seed: int = 0) -> IntProgram:
     29) from seeded weights and synthetic ranges, symmetric int8 weights."""
     net = zoo.yolov2(classes=classes, width=size, height=size)
     return convert(net, init_params_numpy(seed, net), v2_quant_state(net))
+
+
+def synthetic_tree_lines(nodes: int | None = None, leaves: int | None = None, max_depth: int = 6,
+                         seed: int = 0) -> list[str]:
+    """A seeded WordTree in darknet's ``.tree`` format ("<name> <parent>"
+    lines), grown breadth first, so parents precede children and siblings
+    are contiguous: 8-23 roots, then each node in order takes 2-8 children
+    with probability 0.6 above depth 3 and 0.5 below it (none at
+    ``max_depth``) until the tree holds
+    ``nodes`` nodes or ``leaves`` leaves.  yolo9000's ``9k.tree`` has 9,418
+    nodes, which ``synthetic_tree_lines(nodes=9418)`` matches."""
+    if (nodes is None) == (leaves is None):
+        raise ValueError("give exactly one of nodes and leaves")
+    rng = np.random.default_rng(seed)
+    target = nodes if nodes is not None else leaves
+    parent = [-1] * min(int(rng.integers(8, 24)), target)
+    depth = [0] * len(parent)
+    n_leaves = len(parent)
+    i = 0
+    while (len(parent) if nodes is not None else n_leaves) < target:
+        if i == len(parent):
+            raise ValueError(f"a tree of depth {max_depth} cannot reach {target}")
+        if depth[i] < max_depth and rng.random() < (0.6 if depth[i] < 3 else 0.5):
+            k = int(rng.integers(2, 9))
+            k = min(k, target - len(parent) if nodes is not None else target - n_leaves + 1)
+            parent += [i] * k
+            depth += [depth[i] + 1] * k
+            n_leaves += k - 1
+        i += 1
+    return [f"n{j:05d} {p}" for j, p in enumerate(parent)]

@@ -11,6 +11,9 @@ reference's keys (``w`` HWIO, ``bias``, ``gamma``, ``mean``, ``var``) and
 0-d tensors.  ``params_to_torch`` and ``params_to_numpy`` (and the pair for
 the quant state) carry them to and from numpy, which is how weights cross
 between this package and the JAX one and how ``convert`` reads them.
+``NetParams`` holds the same layout as a module (what a trainer keeps, and
+DDP and FSDP2 wrap); a ``ForwardMode`` with a data-parallel group takes its
+batch statistics, ranges and dropout masks over the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from yolo_quantization_tpu_torch.core.quant import (
     ema_update,
@@ -28,7 +32,9 @@ from yolo_quantization_tpu_torch.core.quant import (
     fake_quant_per_channel,
     fake_quant_symmetric_per_channel,
 )
+from yolo_quantization_tpu_torch.core.tree import softmax_tree
 from yolo_quantization_tpu_torch.nn import layers as L
+from yolo_quantization_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclass(frozen=True)
@@ -411,8 +417,63 @@ def params_to_torch(params_np, device, requires_grad: bool = False) -> dict[int,
 
 def params_to_numpy(params_t) -> dict[int, dict[str, np.ndarray]]:
     """Copies (never views of the live tensors, which the optimizer updates
-    in place)."""
-    return {i: {k: v.detach().cpu().numpy().copy() for k, v in p.items()} for i, p in params_t.items()}
+    in place).  A sharded tensor (FSDP2) is gathered whole, a collective
+    every rank of its mesh must join."""
+    def whole(v):
+        return v.full_tensor() if isinstance(v, DTensor) else v
+
+    return {i: {k: whole(v.detach()).cpu().numpy().copy() for k, v in p.items()}
+            for i, p in params_t.items()}
+
+
+class NetParams(torch.nn.Module):
+    """A network's parameters as a module (what DDP and FSDP2 wrap): layer
+    i's trainable tensors (w, bias, gamma) are parameters of child module
+    ``str(i)``, its BN rolling statistics (mean, var) buffers.  Indexing
+    gives the functional layout ``forward`` reads, ``params[i] -> {name:
+    tensor}``, looked up on every access: inside the module's own forward
+    that is the tensor DDP's hooks see and FSDP2's unsharded parameter."""
+
+    def __init__(self, net: NetworkDef, params: dict[int, dict[str, torch.Tensor]]):
+        super().__init__()
+        self.net = net
+        self.layers = torch.nn.ModuleDict()
+        self._names = {}
+        for i, p in params.items():
+            layer = torch.nn.Module()
+            for k, v in p.items():
+                if k in TRAINABLE:
+                    layer.register_parameter(k, torch.nn.Parameter(v.detach(), requires_grad=True))
+                else:
+                    layer.register_buffer(k, v.detach())
+            self.layers[str(i)] = layer
+            self._names[i] = tuple(p)
+
+    def __getitem__(self, i: int) -> dict[str, torch.Tensor]:
+        layer = self.layers[str(i)]
+        return {k: getattr(layer, k) for k in self._names[i]}
+
+    def get(self, i: int, default=None):
+        return self[i] if i in self._names else default
+
+    def __contains__(self, i) -> bool:
+        return i in self._names
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def keys(self):
+        return self._names.keys()
+
+    def items(self):
+        return [(i, self[i]) for i in self._names]
+
+    def values(self):
+        return [self[i] for i in self._names]
+
+    def forward(self, x: torch.Tensor, mode: "ForwardMode", quant_state=None,
+                generator: torch.Generator | None = None, return_outputs: bool = False):
+        return forward(self.net, self, x, mode, quant_state, return_outputs, generator)
 
 
 def quant_state_to_torch(qs_np, device) -> dict[str, dict[str, torch.Tensor]]:
@@ -448,27 +509,30 @@ class ForwardMode:
     # learnable ranges: fake-quant passes gradients to min/max and the train
     # step moves them by sign-SGD
     learned_ranges: bool = False
+    # data parallelism: the process group whose ranks hold the rest of the
+    # global batch.  Batch statistics, activation ranges and dropout masks
+    # are the global batch's (parallel/mesh.py); None is one process
+    group: Any = None
 
 
-def _batch_range(y: torch.Tensor, stat: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-batch activation range for the EMA tracker (no gradient).
+def _batch_range(y: torch.Tensor, stat: str, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch activation range for the EMA tracker (no gradient), over
+    the global batch of ``group``'s ranks.
 
     "minmax": raw extremes.  "percentile[:p]": the p and 100-p percentiles
     (linear interpolation, the reference's float32 arithmetic) of every
     (n // 65536)-th element.
     """
     with torch.profiler.record_function("range_stats"):
-        return _batch_range_stat(y.detach(), stat)
+        return _batch_range_stat(y.detach(), stat, group)
 
 
-def _batch_range_stat(y: torch.Tensor, stat: str) -> tuple[torch.Tensor, torch.Tensor]:
+def _batch_range_stat(y: torch.Tensor, stat: str, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     if stat == "minmax":
-        return torch.amin(y), torch.amax(y)
+        return pmesh.batch_minmax(y, group)
     if stat.startswith("percentile"):
         tail = float(stat.split(":", 1)[1]) if ":" in stat else 0.1
-        flat = y.reshape(-1)
-        step = max(flat.shape[0] // 65536, 1)
-        sub = torch.sort(flat[::step].to(torch.float32)).values
+        sub = torch.sort(pmesh.strided_sample(y.reshape(-1), group).to(torch.float32)).values
         n = sub.shape[0]
         # the rank arithmetic in float32, as the reference's quantile does
         q = np.asarray([tail, 100.0 - tail], np.float32) / np.float32(100.0)
@@ -500,7 +564,7 @@ def _track(x: torch.Tensor, st, mode: ForwardMode, qs, key: str, stat: str | Non
     tracks ranges, the update written back to ``qs[key]``)."""
     lo, hi = st["min"], st["max"]
     if mode.update_ranges:
-        lo, hi = ema_update(lo, hi, *_batch_range(x, stat or mode.range_stat))
+        lo, hi = ema_update(lo, hi, *_batch_range(x, stat or mode.range_stat, mode.group))
         qs[key] = {"min": lo, "max": hi}
     return _hooked(fq_hook, "act", _act_fq(mode)(x, lo, hi), x, lo, hi)
 
@@ -526,7 +590,7 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
     bn_stats = None
     if s.batch_normalize and mode.train and not quantizing:
         pre = L.conv2d(x, p["w"], s.stride, s.pad, mode.compute_dtype)
-        mean, var = L.batch_stats(pre)
+        mean, var = pmesh.batch_stats(pre, mode.group)
         bn_stats = (mean, var)
         inv, bias = L.bn_inference_scale_bias(p["gamma"], p["bias"], mean, var)
         y = pre * inv.reshape(1, 1, 1, -1) + bias.reshape(1, 1, 1, -1)
@@ -535,7 +599,7 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
     if s.batch_normalize:
         if mode.train:
             pre = L.conv2d(x, p["w"], s.stride, s.pad, mode.compute_dtype)
-            mean, var = L.batch_stats(pre)
+            mean, var = pmesh.batch_stats(pre, mode.group)
             bn_stats = (mean, var)
         else:
             mean, var = p["mean"], p["var"]
@@ -568,7 +632,7 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
             # heads (quant_stop) always track raw extremes: their strongest
             # responses are the detections
             stat = "minmax" if s.quant_stop else mode.range_stat
-            blo, bhi = _batch_range(y, stat)
+            blo, bhi = _batch_range(y, stat, mode.group)
             if fold_bounds is not None:
                 blo, bhi = L.clip(blo, *fold_bounds), L.clip(bhi, *fold_bounds)
             lo, hi = ema_update(lo, hi, blo, bhi)
@@ -581,23 +645,20 @@ def _conv_forward(s: ConvSpec, p: dict[str, torch.Tensor], x: torch.Tensor, mode
     return y, bn_stats, new_state
 
 
-def _no_tree(s) -> None:
-    if getattr(s, "tree", None) is not None:
-        raise NotImplementedError(
-            f"{type(s).__name__} with a WordTree (tree=) needs core/tree.py, which is not ported "
-            "yet (ROADMAP queue 1.12)")
-
-
 def apply_simple_layer(s: LayerSpec, p: dict[str, torch.Tensor] | None, x: torch.Tensor, *,
-                       train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+                       train: bool = False, generator: torch.Generator | None = None,
+                       rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Forward of the extended (float-only) darknet layers, shared by the
     float/QAT graph and the integer engine (which dequantizes into it).
 
-    ``[region]``: logistic on x, y and objectness, the raw w and h, softmax
-    (or with ``softmax=0`` logistic) classes.  ``[detection]``: the raw
-    output, with ``softmax`` a softmax over each cell's classes.
+    ``[softmax]`` with a WordTree: the grouped softmax (with temperature).
+    ``[region]``: logistic on x, y and objectness, the raw w and h, and the
+    classes by the WordTree's grouped softmax where the head has a tree,
+    else softmax (or with ``softmax=0`` logistic).  ``[detection]``: the
+    raw output, with ``softmax`` a softmax over each cell's classes.
+    ``rows`` = (rank, world): x is this rank's share of a global batch, and
+    dropout takes that share of the global batch's mask.
     """
-    _no_tree(s)
     if isinstance(s, ConnectedSpec):
         if s.batch_normalize:
             y = L.connected(x, p["w"], torch.zeros_like(p["bias"]))
@@ -607,11 +668,13 @@ def apply_simple_layer(s: LayerSpec, p: dict[str, torch.Tensor] | None, x: torch
             y = L.connected(x, p["w"], p["bias"])
         return L.activate(y, s.activation)
     if isinstance(s, SoftmaxSpec):
+        if s.tree is not None:
+            return softmax_tree(x, s.tree, s.temperature)
         return L.softmax(x, s.temperature, s.groups)
     if isinstance(s, AvgPoolSpec):
         return L.global_avgpool(x)
     if isinstance(s, DropoutSpec):
-        return L.dropout(x, s.probability, generator if train else None)
+        return L.dropout(x, s.probability, generator if train else None, rows)
     if isinstance(s, CropSpec):
         return L.crop(x, s.crop_height, s.crop_width, train=train, generator=generator, flip=s.flip)
     if isinstance(s, LocalSpec):
@@ -641,7 +704,10 @@ def apply_simple_layer(s: LayerSpec, p: dict[str, torch.Tensor] | None, x: torch
     if isinstance(s, RegionSpec):
         n, h, w, _ = x.shape
         r = x.reshape(n, h, w, s.num, 5 + s.classes)
-        cls = torch.softmax(r[..., 5:], dim=-1) if s.softmax else torch.sigmoid(r[..., 5:])
+        if s.tree is not None:
+            cls = softmax_tree(r[..., 5:], s.tree)
+        else:
+            cls = torch.softmax(r[..., 5:], dim=-1) if s.softmax else torch.sigmoid(r[..., 5:])
         return torch.cat([torch.sigmoid(r[..., 0:2]), r[..., 2:4], torch.sigmoid(r[..., 4:5]), cls],
                          dim=-1).reshape(x.shape)
     if isinstance(s, DetectionSpec):
@@ -691,7 +757,8 @@ def layer_forward(net: NetworkDef, i: int, params, x: torch.Tensor, outputs: lis
     if isinstance(s, YoloSpec):
         return x  # decoded separately (eval/detect.py)
     if isinstance(s, SIMPLE_SPECS):
-        return apply_simple_layer(s, params.get(i), x, train=mode.train, generator=generator)
+        return apply_simple_layer(s, params.get(i), x, train=mode.train, generator=generator,
+                                  rows=pmesh.rank_world(mode.group))
     raise TypeError(f"unknown spec {s}")
 
 
@@ -705,8 +772,7 @@ def input_forward(x: torch.Tensor, mode: ForwardMode, qs: dict | None) -> torch.
     st = qs["input"]
     lo, hi = st["min"], st["max"]
     if mode.update_ranges:
-        xd = x.detach()
-        lo, hi = ema_update(lo, hi, torch.amin(xd), torch.amax(xd))
+        lo, hi = ema_update(lo, hi, *pmesh.batch_minmax(x.detach(), mode.group))
         qs["input"] = {"min": lo, "max": hi}
     return _act_fq(mode)(x, lo, hi)
 

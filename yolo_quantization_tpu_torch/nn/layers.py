@@ -342,14 +342,21 @@ def global_avgpool(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(x, dim=(1, 2), keepdim=True)
 
 
-def dropout(x: torch.Tensor, prob: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, prob: float, generator: torch.Generator | None,
+            rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """darknet's dropout: at training time each value is kept with
     probability 1 - prob (the mask drawn from ``generator``, which lives on
     x's device) and survivors are scaled by 1/(1 - prob); without a
-    generator, or at prob 0, the identity."""
+    generator, or at prob 0, the identity.  ``rows`` = (rank, world): x is
+    rank's share of a global batch of world * len(x) rows, and the mask is
+    that share of the global batch's mask (every rank's generator draws the
+    same numbers)."""
     if generator is None or prob <= 0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - prob
+    rank, world = rows
+    n = x.shape[0]
+    keep = torch.rand((n * world,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)[rank * n : (rank + 1) * n] < 1.0 - prob
     return torch.where(keep, x / (1.0 - prob), torch.zeros_like(x))
 
 
@@ -373,11 +380,14 @@ def _reorg_permutation(h: int, w: int, c: int, stride: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _reorg_index(h: int, w: int, c: int, stride: int, reverse: bool, device: torch.device):
-    """The (gather, inverse) index pair on ``device``, built once per shape."""
+    """The (gather, inverse) index pair on ``device``, built once per shape
+    (outside ``inference_mode``: a later training step saves the inverse
+    for backward, which an inference tensor cannot be)."""
     perm = _reorg_permutation(h, w, c, stride)
     inv = np.argsort(perm)
     fwd, back = (inv, perm) if reverse else (perm, inv)
-    return (torch.from_numpy(fwd).to(device), torch.from_numpy(back).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(fwd).to(device), torch.from_numpy(back).to(device))
 
 
 class _Gather(torch.autograd.Function):

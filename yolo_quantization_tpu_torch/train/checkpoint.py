@@ -7,6 +7,12 @@ schedule.  Each save is ``<ckpt_dir>/<step>/state.pt`` (torch state dicts
 and CPU tensors), written to a temporary directory and renamed into place;
 the newest ``max_to_keep`` steps stay.  Model interchange with darknet
 and the JAX package is ``.weights`` I/O (``models/darknet_weights.py``).
+
+A state sharded by FSDP2 is saved whole: the params as the module's full
+state dict (``get_model_state_dict(..., full_state_dict=True)``) and each
+optimizer tensor gathered, in the same file format, so restoring and
+``export`` read it as any other.  Every rank of the group calls
+``save_checkpoint`` (the gathers are collectives) and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import os
 import shutil
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from yolo_quantization_tpu_torch.train.qat import TrainState
 
@@ -32,16 +40,41 @@ def _cpu(tree):
     return {k: {n: v.detach().cpu().clone() for n, v in d.items()} for k, d in tree.items()}
 
 
+def _whole_params(params):
+    """{layer: {name: CPU tensor}}; a sharded module through its full state
+    dict (keys ``layers.<i>.<name>``)."""
+    if isinstance(params, torch.nn.Module) and any(isinstance(p, DTensor) for p in params.parameters()):
+        from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
+
+        full = get_model_state_dict(params, options=StateDictOptions(full_state_dict=True))
+        out: dict = {}
+        for key, v in full.items():
+            _, i, name = key.split(".")
+            out.setdefault(int(i), {})[name] = v.detach().cpu().clone()
+        return out
+    return _cpu(params)
+
+
+def _whole_optimizer(opt):
+    sd = opt.state_dict()
+    sd["state"] = {i: {k: (v.full_tensor() if isinstance(v, DTensor) else v) for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    return sd
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int | None = None,
                     max_to_keep: int = 5) -> None:
     step = int(state.step) if step is None else int(step)
+    params, optimizer = _whole_params(state.params), _whole_optimizer(state.opt_state)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp-{step}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save({
-        "params": _cpu(state.params),
-        "optimizer": state.opt_state.state_dict(),
+        "params": params,
+        "optimizer": optimizer,
         "quant_state": _cpu(state.quant_state),
         "step": int(state.step),
         "seen": int(state.seen),
@@ -61,9 +94,10 @@ def latest_step(ckpt_dir: str) -> int | None:
 @torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, template: TrainState, step: int | None = None) -> TrainState:
     """Restore into ``template`` (from ``init_train_state`` or a Trainer):
-    its parameter tensors take the saved values in place on their device,
-    its optimizer the saved state; the ranges, step and seen come back in
-    the returned state."""
+    its parameter tensors take the saved values in place on their device
+    (each rank its shard of a tensor FSDP2 shards), its optimizer the saved
+    state; the ranges, step and seen come back in the returned state, which
+    keeps the template's DDP or FSDP2 model."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -71,11 +105,25 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState, step: int | None = N
                        weights_only=True)
     for i, p in template.params.items():
         for k, t in p.items():
-            t.copy_(saved["params"][i][k])
-    template.opt_state.load_state_dict(saved["optimizer"])
+            t.copy_(_like(saved["params"][i][k], t))
+    opt = template.opt_state
+    opt.load_state_dict(saved["optimizer"])
+    for p, st in opt.state.items():
+        st.update({k: _like(v, p) for k, v in st.items() if torch.is_tensor(v) and v.shape == p.shape})
     device = next(iter(template.params[next(iter(template.params))].values())).device
     qs = {k: {n: v.to(device) for n, v in d.items()} for k, d in saved["quant_state"].items()}
-    return TrainState(template.params, template.opt_state, qs, saved["step"], saved["seen"])
+    return template._replace(quant_state=qs, step=saved["step"], seen=saved["seen"])
+
+
+def _like(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A whole saved tensor placed as ``t`` is: its shard where ``t`` is a
+    sharded DTensor, else on ``t``'s device."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(v.full_tensor() if isinstance(v, DTensor) else v.to(t.device),
+                                 t.device_mesh, t.placements)
+    return v.to(t.device)
 
 
 def checkpoint_cadence(step: int) -> bool:

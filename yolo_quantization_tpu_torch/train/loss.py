@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yolo_quantization_tpu_torch.core.tree import path_rows, sibling_rows
+
 MAX_BOXES = 90  # darknet's truth bound
 
 
@@ -97,6 +99,17 @@ def _scatter_targets(slot, assign, t_cls, box_scale, box, grid_shape, classes):
     return (assigned[:n_slots].reshape(grid_shape), scale[:n_slots].reshape(grid_shape),
             target[:n_slots].reshape(*grid_shape, 4),
             cls_target[: n_slots * classes].reshape(*grid_shape, classes))
+
+
+def _scatter_rows(slot, assign, rows, grid_shape):
+    """(B, M, C) per-truth rows onto the (B, H, W, A) grid, a slot several
+    truths write keeping the last one's row; zeros elsewhere."""
+    n_slots = int(np.prod(grid_shape))
+    dest = torch.where(_last_writer(slot, assign, n_slots), slot, torch.full_like(slot, n_slots))
+    c = rows.shape[-1]
+    grid = rows.new_zeros(n_slots + 1, c)
+    grid[dest.reshape(-1)] = rows.reshape(-1, c)
+    return grid[:n_slots].reshape(*grid_shape, c)
 
 
 def yolo_head_loss(raw: torch.Tensor, truths: torch.Tensor, mask: tuple[int, ...],
@@ -185,10 +198,12 @@ def region_head_loss(out: torch.Tensor, truths: torch.Tensor, anchors: tuple[tup
     box's best IoU with ``rescore`` (its gradient flows into the box, as in
     the reference's autodiff), 1 otherwise.  With ``seen`` (images so far)
     below 12,800, every anchor not assigned a truth is pulled toward the
-    prior centred in its cell (x = y = 0.5, raw w = h = 0) at weight .01."""
-    if tree is not None:
-        raise NotImplementedError("the WordTree region loss needs core/tree.py, which is not "
-                                  "ported yet (ROADMAP queue 1.12)")
+    prior centred in its cell (x = y = 0.5, raw w = h = 0) at weight .01.
+    With a WordTree (``tree``) the class targets are hierarchical
+    (delta_region_class's tree branch, src/region_layer.c:117-129): 1 on the
+    truth's node and each ancestor, 0 on the rest of their sibling groups,
+    and every other node's class term masked out; a slot several truths
+    write keeps the last one's rows."""
     b, h, w, _ = out.shape
     a = len(anchors)
     dev = out.device
@@ -230,6 +245,11 @@ def region_head_loss(out: torch.Tensor, truths: torch.Tensor, anchors: tuple[tup
         slot = ((bi * h + gj) * w + gi) * a + best_n
         assigned, scale_grid, box_target, cls_target = _scatter_targets(
             slot, valid, t_cls, box_scale, torch.stack([tx, ty, tw, th], dim=-1), (b, h, w, a), classes)
+        cls_mask = None
+        if tree is not None:
+            label = torch.where(valid, t_cls, torch.zeros_like(t_cls))
+            cls_target = _scatter_rows(slot, valid, path_rows(tree, label), (b, h, w, a))
+            cls_mask = _scatter_rows(slot, valid, sibling_rows(tree, label), (b, h, w, a))
 
     zero = out.new_tensor(0.0)
     coord_loss = 0.5 * scale_grid[..., None] * ((r[..., 0:2] - box_target[..., 0:2]) ** 2
@@ -239,7 +259,10 @@ def region_head_loss(out: torch.Tensor, truths: torch.Tensor, anchors: tuple[tup
     obj_w = torch.where(assigned, out.new_tensor(object_scale),
                         torch.where(ignore, zero, out.new_tensor(noobject_scale)))
     obj_loss = 0.5 * obj_w * (obj - obj_tgt) ** 2
-    cls_loss = torch.where(assigned[..., None], 0.5 * class_scale * (cls - cls_target) ** 2, zero)
+    cls_sq = 0.5 * class_scale * (cls - cls_target) ** 2
+    if cls_mask is not None:
+        cls_sq = cls_sq * cls_mask
+    cls_loss = torch.where(assigned[..., None], cls_sq, zero)
     total = (torch.sum(torch.where(assigned[..., None], coord_loss, zero))
              + torch.sum(obj_loss) + torch.sum(cls_loss))
     if seen is not None and int(seen) < 12800:

@@ -16,9 +16,14 @@ detector training with fake-quant after ``quant_start_step``):
 - four step kinds: float warm-up, EMA-tracked QAT, learned ranges (sign-SGD
   on the ranges) and frozen ranges.
 
-Parameters and ranges live in the functional layout of ``nn/graph.py``;
-the step updates the parameter tensors in place through the optimizer and
-returns the new ranges and counters in a fresh ``TrainState``.
+Parameters live in a ``nn/graph.py::NetParams`` module (the functional
+layout of ``nn/graph.py`` by index, what DDP and FSDP2 wrap) and ranges in
+a dict of 0-d tensors; the step updates the parameter tensors in place
+through the optimizer and returns the new ranges and counters in a fresh
+``TrainState``.  Given a device mesh, the ``Trainer`` trains data-parallel
+over its ``data`` dimension (``parallel/mesh.py``: DDP, or
+``parallel/fsdp.py``: FSDP2): each rank steps on its rows of the global
+batch, and the step is the global batch's.
 """
 
 from __future__ import annotations
@@ -30,12 +35,14 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from yolo_quantization_tpu_torch.infer.float_engine import resolve_device
 from yolo_quantization_tpu_torch.nn.graph import (
     TRAINABLE,
     ConvSpec,
     ForwardMode,
+    NetParams,
     NetworkDef,
     forward,
     init_params_numpy,
@@ -43,6 +50,7 @@ from yolo_quantization_tpu_torch.nn.graph import (
     params_to_torch,
     quant_state_to_torch,
 )
+from yolo_quantization_tpu_torch.parallel import mesh as pmesh
 from yolo_quantization_tpu_torch.train.loss import _threefry2x32, total_loss
 
 BN_ROLLING_DECAY = 0.99
@@ -89,11 +97,12 @@ class TrainConfig:
 
 
 class TrainState(NamedTuple):
-    params: Any        # {layer: {name: tensor}}, updated in place by the optimizer
+    params: Any        # NetParams (or {layer: {name: tensor}}), updated in place by the optimizer
     opt_state: Any     # the torch.optim optimizer over ``params``
     quant_state: Any   # {name: {"min", "max"}} 0-d tensors
     step: int
-    seen: int = 0      # images consumed (darknet's net.seen)
+    seen: int = 0      # images consumed over all ranks (darknet's net.seen)
+    model: Any = None  # what the step calls: DDP over ``params``, or ``params`` under FSDP2
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +226,8 @@ def _prune_step(net: NetworkDef, cfg: TrainConfig, params, optimizer) -> torch.T
     """Conv kernel weights with |w| < threshold are zeroed in place together
     with their momentum (SGD's momentum buffer, which exists from the first
     update on, or Adam's first moment), just before the update.  Returns the
-    zeroed fraction as a 0-d tensor."""
+    zeroed fraction as a 0-d tensor, over the whole tensors when FSDP2
+    shards them."""
     zeros, total = None, 0
     for i, s in enumerate(net.specs):
         if not (isinstance(s, ConvSpec) and i in params):
@@ -230,22 +240,56 @@ def _prune_step(net: NetworkDef, cfg: TrainConfig, params, optimizer) -> torch.T
             if st.get(name) is not None:
                 st[name].masked_fill_(pruned, 0.0)
         n = torch.sum(pruned)
+        n = n.full_tensor() if isinstance(n, DTensor) else n
         zeros = n if zeros is None else zeros + n
         total += w.numel()
     return zeros.to(torch.float32) / zeros.new_tensor(float(max(total, 1)), dtype=torch.float32)
 
 
 def init_train_state(net: NetworkDef, cfg: TrainConfig, seed: int = 0, device=None) -> TrainState:
-    """Params from ``init_params_numpy(seed)``, unseen ranges (the input
-    seeded from ``cfg.input_calibration``), a fresh optimizer, step 0."""
+    """Params (a ``NetParams`` module) from ``init_params_numpy(seed)``,
+    unseen ranges (the input seeded from ``cfg.input_calibration``), a fresh
+    optimizer, step 0."""
     device = resolve_device(device, "init_train_state")
-    params = params_to_torch(init_params_numpy(seed, net), device, requires_grad=True)
+    params = NetParams(net, params_to_torch(init_params_numpy(seed, net), device))
     qs = quant_state_to_torch(init_quant_state(net, cfg.input_calibration), device)
     return TrainState(params, make_optimizer(cfg, params), qs, 0, 0)
 
 
+def run_forward(net: NetworkDef, state: TrainState, images, mode: ForwardMode, quant_state=None,
+                generator: torch.Generator | None = None, return_outputs: bool = False):
+    """The forward of a train step: through ``state.model`` (DDP or FSDP2,
+    whose hooks must run) or a ``NetParams`` module where there is one,
+    else over the params dict."""
+    runner = state.model if state.model is not None else state.params
+    if isinstance(runner, torch.nn.Module):
+        return runner(images, mode, quant_state, generator, return_outputs)
+    return forward(net, runner, images, mode, quant_state, return_outputs, generator)
+
+
+@torch.no_grad()
+def roll_bn_stats(params, bn_stats) -> None:
+    """darknet's BN rolling statistics after the update, in place:
+    .99 * rolling + .01 * batch (src/batchnorm_layer.c:143-146)."""
+    for i, (mean, var) in bn_stats.items():
+        p = params[i]
+        p["mean"].copy_(BN_ROLLING_DECAY * p["mean"] + (1 - BN_ROLLING_DECAY) * mean)
+        p["var"].copy_(BN_ROLLING_DECAY * p["var"] + (1 - BN_ROLLING_DECAY) * var)
+
+
+def to_device(a, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """numpy or tensor -> ``dtype`` on ``device``, through pinned memory
+    from the host to a card."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def make_train_step(net: NetworkDef, cfg: TrainConfig, qat: bool,
-                    learned_ranges: bool = False, freeze_ranges: bool = False):
+                    learned_ranges: bool = False, freeze_ranges: bool = False, group=None):
     """The step of one phase (float warm-up / EMA-QAT / learned-range QAT /
     frozen-range QAT): step(state, images, truths) -> (state, metrics).
 
@@ -255,57 +299,63 @@ def make_train_step(net: NetworkDef, cfg: TrainConfig, qat: bool,
     ``metrics["loss"]`` (and ``"sparsity"`` when pruning) are 0-d device
     tensors, ``metrics["lr"]`` the rate used.  Dropout (and the training
     crop) draw from ``generator``; without one they are the identity, as in
-    the reference's step.
+    the reference's step.  With a data-parallel ``group`` the images are
+    this rank's rows of the global batch: batch statistics, ranges, dropout
+    masks, the learned ranges' gradients and ``seen`` are the global
+    batch's.
     """
     mode = ForwardMode(
         train=True, qat=qat, update_ranges=qat and not learned_ranges and not freeze_ranges,
         compute_dtype=cfg.compute_dtype, range_stat=cfg.range_stat, learned_ranges=learned_ranges,
+        group=group,
     )
+    _, world = pmesh.rank_world(group)
     lr_fn = lr_schedule(cfg)
 
     def step(state: TrainState, images: torch.Tensor, truths: torch.Tensor,
              generator: torch.Generator | None = None):
         opt = state.opt_state
         lr = lr_fn(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for pg in opt.param_groups:
+            pg["lr"] = lr
         opt.zero_grad(set_to_none=True)
         qs_in = state.quant_state
         if learned_ranges:
             qs_in = {k: {n: v.detach().requires_grad_(True) for n, v in st.items()}
                      for k, st in qs_in.items()}
-        heads, aux = forward(net, state.params, images, mode, qs_in, generator=generator)
+        heads, aux = run_forward(net, state, images, mode, qs_in, generator)
         loss, _ = total_loss(heads, truths, net, input_hw=tuple(images.shape[1:3]), seen=state.seen)
         loss.backward()
-        metrics = {"loss": loss.detach(), "lr": lr}
+        metrics = {"loss": pmesh.global_mean(loss.detach(), group), "lr": lr}
         if cfg.prune:
             with torch.profiler.record_function("train_state_update"):
                 metrics["sparsity"] = _prune_step(net, cfg, state.params, opt)
         opt.step()
         with torch.no_grad(), torch.profiler.record_function("train_state_update"):
-            for i, (mean, var) in aux["bn_stats"].items():
-                p = state.params[i]
-                p["mean"].copy_(BN_ROLLING_DECAY * p["mean"] + (1 - BN_ROLLING_DECAY) * mean)
-                p["var"].copy_(BN_ROLLING_DECAY * p["var"] + (1 - BN_ROLLING_DECAY) * var)
+            roll_bn_stats(state.params, aux["bn_stats"])
             if learned_ranges:
                 # sign-SGD with clamps that keep the nudge well defined:
-                # min <= 0, max >= 1e-3
+                # min <= 0, max >= 1e-3.  The ranges are not module
+                # parameters, so DDP does not reduce their gradients: the
+                # sum over ranks has the sign of the global batch's
                 rate = float(_f32(cfg.range_lr))
-                quant_state = {}
-                for name, st in qs_in.items():
-                    quant_state[name] = {}
-                    for k, r in st.items():
-                        g = r.grad if r.grad is not None else torch.zeros_like(r)
-                        v = r.detach() - rate * torch.sign(g)
-                        quant_state[name][k] = (torch.minimum(v, v.new_tensor(0.0)) if k == "min"
-                                                else torch.maximum(v, v.new_tensor(1e-3)))
+                flat = [(name, k, r) for name, st in qs_in.items() for k, r in st.items()]
+                grads = torch.stack([r.grad if r.grad is not None else torch.zeros_like(r)
+                                     for _, _, r in flat])
+                if world > 1:
+                    torch.distributed.all_reduce(grads, group=group)
+                quant_state = {name: {} for name in qs_in}
+                for (name, k, r), g in zip(flat, grads):
+                    v = r.detach() - rate * torch.sign(g)
+                    quant_state[name][k] = (torch.minimum(v, v.new_tensor(0.0)) if k == "min"
+                                            else torch.maximum(v, v.new_tensor(1e-3)))
             elif qat:
                 quant_state = {k: {n: v.detach() for n, v in st.items()}
                                for k, st in aux["quant_state"].items()}
             else:
                 quant_state = state.quant_state
-        new_state = TrainState(state.params, opt, quant_state, state.step + 1,
-                               state.seen + images.shape[0])
+        new_state = state._replace(opt_state=opt, quant_state=quant_state, step=state.step + 1,
+                                   seen=state.seen + images.shape[0] * world)
         return new_state, metrics
 
     return step
@@ -323,26 +373,25 @@ class Trainer:
     and moves them to the device (through pinned memory on CUDA).
     Multi-scale training is a batch of another size: the graph is
     shape-free.
+
+    With a device ``mesh`` (``parallel/distributed.py::global_mesh``) the
+    trainer is data-parallel over its ``data`` dimension: params wrapped in
+    DDP, or sharded by FSDP2 with ``fsdp``; ``step`` then takes this rank's
+    rows of the global batch (``parallel/mesh.py::shard_batch``), and every
+    rank's generator draws the same numbers.
     """
 
-    def __init__(self, net: NetworkDef, cfg: TrainConfig, seed: int = 0, device=None):
+    def __init__(self, net: NetworkDef, cfg: TrainConfig, seed: int = 0, device=None,
+                 mesh=None, fsdp: bool = False):
         self.net = net
         self.cfg = cfg
         self.device = resolve_device(device, "Trainer")
-        self.state = init_train_state(net, cfg, seed, self.device)
+        self.state, self.group = pmesh.data_parallel(init_train_state(net, cfg, seed, self.device), mesh, fsdp)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._float_step = make_train_step(net, cfg, qat=False)
-        self._qat_step = make_train_step(net, cfg, qat=True)
+        self._float_step = make_train_step(net, cfg, qat=False, group=self.group)
+        self._qat_step = make_train_step(net, cfg, qat=True, group=self.group)
         self._learned_step = None  # built on first use
         self._frozen_step = None
-
-    def _to_device(self, a) -> torch.Tensor:
-        t = torch.as_tensor(a, dtype=torch.float32)
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
 
     def step(self, images, truths):
         step_i = self.state.step
@@ -351,16 +400,18 @@ class Trainer:
             fn = self._float_step
         elif cfg.learned_ranges and step_i >= cfg.quant_start_step + cfg.range_warmup:
             if self._learned_step is None:
-                self._learned_step = make_train_step(self.net, cfg, qat=True, learned_ranges=True)
+                self._learned_step = make_train_step(self.net, cfg, qat=True, learned_ranges=True,
+                                                     group=self.group)
             fn = self._learned_step
         elif (cfg.freeze_ranges_after is not None
               and step_i >= cfg.quant_start_step + cfg.freeze_ranges_after):
             if self._frozen_step is None:
-                self._frozen_step = make_train_step(self.net, cfg, qat=True, freeze_ranges=True)
+                self._frozen_step = make_train_step(self.net, cfg, qat=True, freeze_ranges=True,
+                                                    group=self.group)
             fn = self._frozen_step
         else:
             fn = self._qat_step
-        self.state, metrics = fn(self.state, self._to_device(images), self._to_device(truths),
+        self.state, metrics = fn(self.state, to_device(images, self.device), to_device(truths, self.device),
                                  self.generator)
         return metrics
 
