@@ -136,7 +136,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      tree region loss at batch 8, card vs CPU; darknet19 (224, 1000
      classes) under ClassifierTrainer at batch 16, flat and with a
      1,000-leaf tree, card vs CPU, evaluate_top_k; SegmenterTrainer (416,
-     21 classes, batch 4), card vs CPU, predict.
+     21 classes, batch 4), card vs CPU, predict;
+ 18. the C-parity harness (yolo_quantization_tpu_torch/tools/parity_check.py):
+     the flagship topology at 416 with seeded weights calibrated on a seeded
+     lossless image, written as an asymmetric .weights file, run by the
+     C-exact twin (numpy, on the host; its seconds printed) and by the
+     parity engine on K1, static and dynamic input: tier 2 (every u8
+     layer within 16 LSB of the twin, TP and TP_FN equal and TP_FP within
+     5% at 0.25) must pass; tier 1 needs the reference sources and is
+     reported as not run; then tools/crossf1.py short (12 train images at
+     96, 150 steps, batch 8, 6 eval images at 416): contract 2 (the
+     engine's best F1 >= the QAT simulation's - 0.5) must hold;
+ 19. the benchmarks: python -m yolo_quantization_tpu_torch.cli bench and
+     bench --v3 (their JSON lines), tools/bench_serving.py at four offered
+     rates of 4 s each picked from predict's batch-1 and batch-16 rates,
+     tools/bench_train.py chip (batch 64, 5 steps), tools/dryrun.py
+     (entry() and dryrun_multichip(1) on a one-rank NCCL group); K1's and
+     the shortcut's launches counted into the kernels line.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -150,6 +166,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1653,6 +1670,91 @@ def phase_cli(counters, card: str) -> int:
     return launches[0]
 
 
+def phase_parity(counters, card: str, workdir: str) -> tuple[int, ...]:
+    """Phase 18: tools/parity_check.py at 416, static and dynamic input, on
+    one seeded image (tier 2 must pass), then tools/crossf1.py short (12
+    train images at 96, 150 steps, batch 8, 6 eval images at 416; contract
+    2 must hold).  Returns the (K1, K2, shortcut) launches of the phase."""
+    from yolo_quantization_tpu_torch.tools import crossf1, parity_check
+
+    reset_counts(*counters)
+    for dynamic in (False, True):
+        t0 = time.perf_counter()
+        r = parity_check.check(os.path.join(workdir, "parity"), dynamic=dynamic, seed=0)
+        mode = "dynamic" if dynamic else "static"
+        log(f"  parity_check {mode}: max LSB per u8 layer "
+            + ", ".join(f"{i}:{v['max']}" for i, v in r["tier2_engine_lsb"].items())
+            + f"; wraps {r['tier2_wraps']}; quant_stop max |d| "
+            + ", ".join(f"{i}:{v:.4g}" for i, v in r["tier2_quant_stop_max_abs"].items()))
+        log(f"  parity_check {mode}: twin {r['twin_seconds']:.3f} s on the host (step-wise float32 GEMM "
+            f"in convs {r['twin_stepwise_convs']}), detections twin / engine "
+            f"{r['tier2_det_counts']['twin']} / {r['tier2_det_counts']['engine']}, counts at "
+            f"{r['tier2_f1_counts']['twin']['thresh']} twin {r['tier2_f1_counts']['twin']} engine "
+            f"{r['tier2_f1_counts']['engine']}; sweep twin "
+            f"{[(c['tp'], c['tp_fp']) for c in r['f1_sweep']['twin']]} engine "
+            f"{[(c['tp'], c['tp_fp']) for c in r['f1_sweep']['engine']]}; tier 1: {r['tier1']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not r["tier2_ok"]:
+            raise AssertionError(f"parity_check {mode}: tier 2 failed: {json.dumps(r, default=str)[:3000]}")
+    t0 = time.perf_counter()
+    out = crossf1.run(os.path.join(workdir, "crossf1"), steps=150, train_size=96, batch=8, n_train=12,
+                      n_eval=6, device="cuda", tag="smoke", log=lambda m: log(f"    {m}"))
+    log(f"  crossf1 (150 steps at 96, batch 8, 6 eval images at 416): {json.dumps(crossf1.summary(out))}")
+    log(f"  crossf1: twin {out['twin_c_exact']['seconds']:.3f} s over 6 images, training "
+        f"{out['train']['seconds']:.1f} s, all {time.perf_counter() - t0:.1f} s [{card}]")
+    if not out["contract2_engine_within_half_point_of_qat_sim"]:
+        raise AssertionError("crossf1 contract 2: the engine's best F1 is more than 0.5 under the QAT sim's")
+    launches = tuple(c.launches for c in counters)
+    if launches[0] == 0 or launches[1:] != (0, 0):
+        raise AssertionError(f"phase 18 launched (K1, K2, shortcut) {launches}, not K1 alone")
+    log(f"  phase 18: (K1, K2, shortcut) launches {launches}")
+    return launches
+
+
+def phase_bench(counters, card: str) -> tuple[int, ...]:
+    """Phase 19: the command line's bench and bench --v3, tools/bench_serving.py
+    at four offered rates of about 4 s each (picked from predict's batch-1
+    and batch-16 rates), tools/bench_train.py chip (5 steps), and
+    tools/dryrun.py (entry() and dryrun_multichip(1) on a one-rank NCCL
+    group).  Returns the (K1, K2, shortcut) launches of the phase."""
+    from yolo_quantization_tpu_torch.cli.main import main as cli
+    from yolo_quantization_tpu_torch.models.presets import flagship_program
+    from yolo_quantization_tpu_torch.infer.engine import Engine
+    from yolo_quantization_tpu_torch.tools import bench_serving, bench_train, dryrun
+
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    cli(["bench"])
+    log(f"  bench: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli(["bench", "--v3"])
+    log(f"  bench --v3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine = Engine(flagship_program(), max_det=64)
+    images = bench_serving.request_images()
+    r1, r16 = bench_serving.predict_rates(engine, images)
+    rates = bench_serving.suggest_rates(r1, r16)
+    log(f"  serving: predict {r1:.1f} images/s at batch 1, {r16:.1f} at 16 -> offered rates "
+        f"{[round(r, 1) for r in rates]}")
+    rows = bench_serving.serve_rates(engine, rates, 4.0, log=lambda m: log(f"  {m}"))
+    log(bench_serving.table(rows))
+    log(f"  serving: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    bench_train.bench_chip(batch=64, steps=5)
+    log(f"  bench_train chip: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry()
+    heads = fn(*args)
+    log(f"  dryrun entry(): heads {[tuple(h.shape) for h in heads]}")
+    dryrun.dryrun_multichip(1)
+    log(f"  dryrun: {time.perf_counter() - t0:.1f} s")
+    launches = tuple(c.launches for c in counters)
+    if launches[0] == 0 or launches[2] == 0 or launches[1] != 0:
+        raise AssertionError(f"phase 19 launched (K1, K2, shortcut) {launches}")
+    log(f"  phase 19: (K1, K2, shortcut) launches {launches}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
@@ -1768,21 +1870,32 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     tree_launches = wordtree_check.run(card)["launches"]
     log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        log("phase 18: the C-parity harness (parity_check static and dynamic, crossf1 short)")
+        t0 = time.perf_counter()
+        parity_launches = phase_parity(counters, card, workdir)
+        log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+    log("phase 19: the benchmarks (bench, bench --v3, bench_serving, bench_train) and the dry run")
+    t0 = time.perf_counter()
+    bench_launches = phase_bench(counters, card)
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
     log(f"  main-path K1 launches: yolov3-tiny server {launches[0]}, yolov3 server {v3_launches[0]}, "
         f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}, "
-        f"TP engine {tp_launches}, WordTree engine {tree_launches}")
+        f"TP engine {tp_launches}, WordTree engine {tree_launches}, parity harness {parity_launches[0]}, "
+        f"benchmarks and dry run {bench_launches[0]} (shortcut {bench_launches[2]})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:173",
-                 launches[0] + v3_launches[0] + v2_launches[0] + cli_launches + tp_launches + tree_launches,
+                 launches[0] + v3_launches[0] + v2_launches[0] + cli_launches + tp_launches + tree_launches
+                 + parity_launches[0] + bench_launches[0],
                  errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),
         sc.entry("shortcut", "yolo_quantization_tpu_torch/csrc/shortcut.cu",
-                 "yolo_quantization_tpu/infer/engine.py:428-469", main_launches["v3"][2],
+                 "yolo_quantization_tpu/infer/engine.py:428-469", main_launches["v3"][2] + bench_launches[2],
                  errors.worst["shortcut"]),
         k3["a"].entry("orientation_a", "yolo_quantization_tpu_torch/csrc/gemm_probe.cu",
                       "scripts/mxu_orientation_probe.py:47", probe_launches["orientation_a"],

@@ -2,9 +2,10 @@
 user runs it: train -> export / export-program -> detect, f1, recall,
 valid, weights-tool and demo; the same ``.weights`` file through the JAX
 package's CLI gives the same ``valid`` files, mAP and ``detect`` boxes; the
-parser has the JAX parser's subcommands and options (plus ``--device``);
-the parts not ported yet exit naming their ROADMAP items."""
+parser has the JAX parser's subcommands and options (plus ``--device``,
+and ``bench``'s own); ``bench`` runs (``tools/bench.py``)."""
 
+import json
 import os
 import re
 import subprocess
@@ -144,8 +145,9 @@ def test_parser_has_the_jax_subcommands_and_options():
     got, want = _options(build_parser()), _options(jbuild_parser())
     assert set(got) == set(want) == {"train", "detect", "f1", "export", "export-program", "recall",
                                      "valid", "weights-tool", "demo", "bench"}
+    bench_options = {"--v3", "--batches", "--more-batches", "--size", "--chain", "--device"}
     for name in want:
-        extra = {"--device"} if name != "bench" else set()
+        extra = {"--device"} if name != "bench" else bench_options
         assert got[name] == want[name] | extra, name
     subs = next(a for a in build_parser()._actions if a.dest == "command").choices
     for name in ("export", "export-program", "detect"):
@@ -159,14 +161,19 @@ def test_parser_has_the_jax_subcommands_and_options():
     (["bench"], "1.13"),
 ])
 def test_unported_parts_exit_naming_the_roadmap(argv, item, trained, tmp_path, capsys):
-    """``bench`` exits naming its ROADMAP item.  ``train --data-parallel``
-    and ``--fsdp`` are ported: without torchrun the process group is this
-    one process, which trains two steps, prints the JAX CLI's lines (the
-    FSDP report too), checkpoints and leaves no group behind (the two-rank
-    cases are in ``test_torch_distributed.py``)."""
+    """Every part is ported now.  ``bench`` (ROADMAP 1.13) no longer exits
+    naming its item: it runs, here on the CPU at 64x64, and prints
+    ``bench.py``'s JSON line (``tests/test_torch_bench.py`` holds its
+    fields).  ``train --data-parallel`` and ``--fsdp``: without torchrun
+    the process group is this one process, which trains two steps, prints
+    the JAX CLI's lines (the FSDP report too), checkpoints and leaves no
+    group behind (the two-rank cases are in ``test_torch_distributed.py``)."""
     if argv[0] == "bench":
-        with pytest.raises(SystemExit, match=re.escape(f"ROADMAP queue {item}")):
-            main(argv)
+        main([*argv, "--device", "cpu", "--size", "64", "--batches", "2", "--more-batches", "", "--chain", "2"])
+        out = capsys.readouterr().out
+        assert f"ROADMAP queue {item}" not in out
+        line = json.loads(out.strip().splitlines()[-1])
+        assert line["conv_path"] == "k1" and line["batch"] == 2 and line["device"] == "cpu"
         return
     import torch.distributed as dist
 

@@ -33,7 +33,10 @@ def test_every_module_imports_with_jax_blocked():
               "data.video",
               # parallelism, WordTree and the other trainers
               "parallel", "parallel.distributed", "parallel.mesh", "parallel.fsdp", "parallel.tp",
-              "core.tree", "train.classify", "train.segment"):
+              "core.tree", "train.classify", "train.segment",
+              # the parity harness, the benchmarks and the dry run
+              "parity", "parity.ctwin", "tools.parity_check", "tools.crossf1", "tools.bench",
+              "tools.bench_serving", "tools.bench_train", "tools.dryrun"):
         assert f"yolo_quantization_tpu_torch.{m}" in mods
     code = "\n".join([
         "import importlib, sys",

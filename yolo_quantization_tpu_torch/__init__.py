@@ -30,8 +30,11 @@ these are in models/, train/ and nn/):
   utils/profiling.py torch.profiler trace, step timer, JSONL metrics
   data/video.py      OpenCV video read/write
   cli/               the command line (python -m yolo_quantization_tpu_torch.cli)
-  tools/             the GEMM-orientation probe (csrc/gemm_probe.cu) and the
-                     forward's profiler breakdown
+  parity/ctwin.py    numpy twin of the darknet C binary's uint8 arithmetic
+  tools/             the GEMM-orientation probe (csrc/gemm_probe.cu), the
+                     forward's profiler breakdown, the C-parity harness
+                     (parity_check, crossf1), the benchmarks (bench,
+                     bench_serving, bench_train) and the dry run (dryrun)
 """
 
 __version__ = "0.1.0"

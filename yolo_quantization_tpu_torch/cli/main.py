@@ -6,6 +6,7 @@
   python -m yolo_quantization_tpu_torch.cli valid  --weights W --test-list L --map
   python -m yolo_quantization_tpu_torch.cli f1     --program P.npz --test-list L
   python -m yolo_quantization_tpu_torch.cli export --ckpt DIR --out W
+  python -m yolo_quantization_tpu_torch.cli bench  [--v3] [--batches 128,256]
 
 Models come from darknet cfg files (``models/cfg.py``) or the built-in zoo
 (``--model yolov3-tiny|yolov3|yolov2-tiny|yolov2``); weights from darknet
@@ -28,8 +29,7 @@ import time
 import numpy as np
 import torch
 
-ROADMAP_BENCH = ("bench: the H100 benchmark (latency percentiles, images/s) is ROADMAP queue "
-                 "1.13 and not written yet; the TPU bench.py does not run on the port")
+from yolo_quantization_tpu_torch.tools import bench as bench_tool
 
 
 def _device(args) -> str:
@@ -503,7 +503,7 @@ def cmd_demo(args):
 
 
 def cmd_bench(args):
-    raise SystemExit(ROADMAP_BENCH)
+    bench_tool.run_args(args)
 
 
 def build_parser():
@@ -637,7 +637,9 @@ def build_parser():
     sp.add_argument("--names", help="class names file for box labels")
     sp.set_defaults(fn=cmd_demo)
 
-    sp = sub.add_parser("bench", help="the H100 benchmark (ROADMAP queue 1.13; not written yet)")
+    sp = sub.add_parser("bench", help="the GPU benchmark: images/s, int8 utilization, batch-1 latency "
+                                      "(tools/bench.py)")
+    bench_tool.add_arguments(sp)
     sp.set_defaults(fn=cmd_bench)
     return p
 

@@ -33,14 +33,14 @@ from yolo_quantization_tpu_torch.nn.graph import (
 
 
 def resolve_device(device, who: str) -> torch.device:
-    """``device``, or the GPU when it is None; never a silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{who} runs on the GPU unless asked otherwise, and "
-                "torch.cuda.is_available() is false; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """``device``, or the GPU when it is None; a GPU where there is none
+    raises: never a silent CPU fallback."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on the GPU unless asked otherwise, and "
+            "torch.cuda.is_available() is false; pass device='cpu' (--device cpu) to run on the CPU")
+    return dev
 
 
 def _as_device_tensors(tree, device, to_torch):

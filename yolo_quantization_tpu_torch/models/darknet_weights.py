@@ -271,17 +271,21 @@ def save_darknet_weights(
     params: dict[int, dict[str, np.ndarray]],
     quant_state: dict[str, dict[str, float]] | None = None,
     seen: int = 0,
+    symmetric_weights: bool = True,
 ) -> None:
     """Write params (+ quant extension when quant_state given) in darknet layout.
 
     The quant block's per-layer artifacts (weight uint8 codes + scales) are
     re-derived from the float weights by the same BN-fold + per-channel nudge
     as ``infer/convert.py``, so a file written here and loaded by the darknet
-    binary sees the integer model the engine runs.
+    binary sees the integer model the engine runs: symmetric per channel
+    (zero point 128) by default, the reference's asymmetric per-channel codes
+    with ``symmetric_weights=False`` (the C-parity engine's conversion).
     """
     from yolo_quantization_tpu_torch.infer.convert import convert
 
-    program = convert(net, params, quant_state) if quant_state is not None else None
+    program = (convert(net, params, quant_state, symmetric_weights=symmetric_weights)
+               if quant_state is not None else None)
 
     out = bytearray()
     out += struct.pack("<iii", 0, 2, 0)

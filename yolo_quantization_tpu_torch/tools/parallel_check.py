@@ -160,17 +160,17 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _two_ranks(kind: str, d: str, size: int, batch: int, device, timeout: float) -> tuple[int, str]:
-    """Two gloo worker processes of ``kind`` (ddp or fsdp) on ``device``:
-    (rank 0's exit code, the last of the workers' output)."""
+def launch_ranks(module: str, n: int, argv, timeout: float) -> tuple[int, str]:
+    """``n`` worker processes ``python -m module *argv(port, rank)``, the
+    repo on their path and ``port`` a free localhost port for their group:
+    (the exit code of largest magnitude, the last of each worker's output)."""
     port = _free_port()
     env = {**os.environ, "PYTHONFAULTHANDLER": "1", "PYTHONPATH": os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
          os.environ.get("PYTHONPATH", "")])}
-    procs = [subprocess.Popen([sys.executable, "-m", "yolo_quantization_tpu_torch.tools.parallel_check",
-                               "--worker", kind, str(port), str(r), d, str(size), str(batch), str(device)],
+    procs = [subprocess.Popen([sys.executable, "-m", module, *argv(port, r)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-             for r in range(2)]
+             for r in range(n)]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -198,7 +198,10 @@ def data_parallel_two_ranks(card: str, size: int = 416, batch: int = 16, device=
     report = {}
     with tempfile.TemporaryDirectory() as d:
         for kind in ("ddp", "fsdp"):
-            code, tail = _two_ranks(kind, d, size, batch, device, timeout)
+            code, tail = launch_ranks(
+                "yolo_quantization_tpu_torch.tools.parallel_check", 2,
+                lambda port, r: ["--worker", kind, str(port), str(r), d, str(size), str(batch), str(device)],
+                timeout)
             if code != 0:
                 if kind == "ddp":
                     raise AssertionError(f"two-rank DDP workers failed:\n{tail}")

@@ -51,6 +51,25 @@ def configurations(v3: bool = False):
     }
 
 
+def kernel_time(fn, iters: int = ITERS) -> tuple[float, float, list]:
+    """``iters`` back-to-back calls of ``fn`` under torch.profiler: (device
+    ms, wall ms, the kernels' profiler entries, most time first), per call.
+    The device time sums the kernels' own durations, so the gaps between
+    launches are not in it; the wall time is the host clock over the same
+    calls, ended by a synchronize."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # the kernels themselves: an operator's entry repeats its kernels' time
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters, wall_ms, events
+
+
 def breakdown(program, option: dict, batch: int, top: int = 6) -> dict:
     forward = build_forward(program, **option)
     arrays = device_arrays(program, "cuda")
@@ -59,17 +78,7 @@ def breakdown(program, option: dict, batch: int, top: int = 6) -> dict:
     with torch.inference_mode():
         for _ in range(2):  # builds the kernels, warms the allocator
             forward(arrays, x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(ITERS):
-                forward(arrays, x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
-    # the kernels themselves: an operator's entry repeats its kernels' time
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / ITERS
-    events.sort(key=lambda e: -e.self_device_time_total)
+        device_ms, wall_ms, events = kernel_time(lambda: forward(arrays, x), ITERS)
 
     def share(names) -> float:
         ms = sum(e.self_device_time_total for e in events if any(n in e.key for n in names))
