@@ -152,7 +152,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      rates of 4 s each picked from predict's batch-1 and batch-16 rates,
      tools/bench_train.py chip (batch 64, 5 steps), tools/dryrun.py
      (entry() and dryrun_multichip(1) on a one-rank NCCL group); K1's and
-     the shortcut's launches counted into the kernels line.
+     the shortcut's launches counted into the kernels line;
+ 20. the accuracy loop and the capstone: tools/synthetic_accuracy_loop.py
+     as a user runs it (400 steps at 96, convert, K1; |integer F1 - float
+     F1| <= 0.5 must hold), then tools/accuracy_capstone.py at the
+     flagship's configuration (yolov3-tiny, relu6, 416, 5 classes, batch
+     32, multiscale 320/416/512, 200 eval images) at 1500 steps, QAT from
+     600 (the tool's 3000 runs alone; CAPSTONE_STEPS says why): integer F1
+     >= float - 0.5 and >= QAT-sim - 0.5 must hold, every printed loss
+     finite, 104 K1 launches; then --bf16, --v3 (75 K1 + 23 shortcut launches a
+     batch), --v2, --leaky, --learned (400 steps), --percentile and
+     --float-baseline at 40 steps, batch 8, 25 eval images, their
+     contracts printed; every record's key sets the JAX script's.
 
 Prints a {"kernels": [...]} JSON line, then the card's nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Needs one CUDA device and nvcc; imports
@@ -1755,6 +1766,118 @@ def phase_bench(counters, card: str) -> tuple[int, ...]:
     return launches
 
 
+# phase 20 (c): each other path of the capstone at a short schedule, and its
+# integer launches per evaluated batch (K1, K2, shortcut); --learned runs 400
+# steps, so its learned-range steps (from quant_start + range_warmup = 360)
+# run
+CAPSTONE_VARIANTS = (
+    (["40", "8", "--bf16"], (13, 0, 0)),
+    (["40", "8", "--v3"], (75, 0, 23)),
+    (["40", "8", "--v2"], (9, 0, 0)),
+    (["40", "8", "--leaky"], (13, 0, 0)),
+    (["400", "8", "--learned"], (13, 0, 0)),
+    (["40", "8", "--percentile"], (13, 0, 0)),
+    (["40", "8", "--float-baseline"], (0, 0, 0)),
+)
+# phase 20 (b): the flagship capstone's schedule.  The tool's protocol is
+# 3000 steps (quantization from 1,200; 262-267 s of training on an H100,
+# PERF.md §5); after phases 1-19 (487-610 s in earlier runs) that would put
+# the script at or past 15 minutes.  At 1500 steps quantization starts at
+# 600, training takes about 139 s, and both halves of the contract are
+# still asserted
+CAPSTONE_STEPS = 1500
+
+
+def record_key_sets(name: str) -> tuple[set, set]:
+    """The top-level and ``config`` key sets of a record the JAX script wrote."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), name)) as f:
+        rec = json.load(f)
+    return set(rec), set(rec["config"])
+
+
+def count_launches(counters, what: str, expected: tuple[int, ...]) -> tuple[int, ...]:
+    got = tuple(c.launches for c in counters)
+    if got != expected:
+        raise AssertionError(f"{what} launched (K1, K2, shortcut) {got}, expected {expected}")
+    return got
+
+
+def run_capstone(args: list[str], workdir: str) -> dict:
+    """tools/accuracy_capstone.py on the card with ``args``, its record in
+    ``workdir``: every printed loss finite, the record's key sets the JAX
+    script's.  Returns the record and the training's peak memory."""
+    from yolo_quantization_tpu_torch.tools import accuracy_capstone
+
+    out, info = accuracy_capstone.main(args + [f"--out-dir={workdir}", "--tag=smoke"],
+                                       log=lambda m: log(f"    {m}"))
+    if not np.isfinite([v for _, v in info["losses"]]).all():
+        raise AssertionError(f"capstone {args}: a non-finite loss among the printed {info['losses']}")
+    want = record_key_sets("FLOATBASE_V3_r05.json" if "--float-baseline" in args else "ACCURACY_V2_r05.json")
+    if (set(out), set(out["config"])) != want:
+        raise AssertionError(f"capstone {args}: the record's key sets differ from the JAX script's")
+    return out | {"peak_mib": info["peak_mib"]}
+
+
+def phase_accuracy_loop(counters, card: str) -> tuple[int, ...]:
+    """Phase 20 (a): tools/synthetic_accuracy_loop.py at its 400 steps; its
+    |integer F1 - float F1| <= 0.5 must hold."""
+    from yolo_quantization_tpu_torch.tools import synthetic_accuracy_loop
+
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    int_best, float_best = synthetic_accuracy_loop.main(400, "cuda")
+    got = count_launches(counters, "the synthetic accuracy loop", (13, 0, 0))  # 16 images: one batch
+    log(f"  (a) synthetic_accuracy_loop, 400 steps: integer F1 {int_best.f1:.2f}, float F1 {float_best.f1:.2f}, "
+        f"gap {abs(int_best.f1 - float_best.f1):.2f} <= 0.5; {time.perf_counter() - t0:.1f} s [{card}]")
+    return got
+
+
+def phase_flagship_capstone(counters, card: str, workdir: str) -> tuple[int, ...]:
+    """Phase 20 (b): the capstone at the flagship's configuration
+    (yolov3-tiny, relu6, 416, 5 classes, batch 32, multiscale, 200 eval
+    images) for CAPSTONE_STEPS steps; both halves of its contract must
+    hold."""
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    out = run_capstone([str(CAPSTONE_STEPS), "32"], workdir)
+    got = count_launches(counters, "the flagship capstone's integer row", (13 * 8, 0, 0))  # 8 batches of 25
+    log(f"  (b) capstone yolov3-tiny relu6 416, {CAPSTONE_STEPS} steps, batch 32, multiscale: float F1 "
+        f"{out['float']['f1']}, QAT-sim {out['qat_sim']['f1']}, integer {out['int']['f1']}; gaps "
+        f"{out['f1_gap']} / {out['f1_gap_vs_qat_sim']}; train_seconds {out['train_seconds']}, peak "
+        f"{out['peak_mib']:.1f} MiB; K1 launches {got[0]}; {time.perf_counter() - t0:.1f} s [{card}]")
+    if not (out["within_half_point"] and out["int_within_half_of_qat_sim"]):
+        raise AssertionError(f"the flagship capstone's contract failed: {json.dumps(out)}")
+    return got
+
+
+def phase_capstone_variants(counters, card: str, workdir: str) -> tuple[int, ...]:
+    """Phase 20 (c): every other capstone path at a short schedule, on the
+    card; contracts printed, not asserted."""
+    total = np.zeros(3, np.int64)
+    for args, per_batch in CAPSTONE_VARIANTS:
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        out = run_capstone(args + ["--eval-images=25"], workdir)
+        total += count_launches(counters, f"capstone {args}", per_batch)
+        rows = {k: out[k]["f1"] for k in ("float", "qat_sim", "int") if k in out}
+        log(f"  (c) capstone {' '.join(args)}: F1 {rows}; contract (printed, not asserted) "
+            f"{out.get('within_half_point')} / {out.get('int_within_half_of_qat_sim')}; train_seconds "
+            f"{out['train_seconds']}, peak {out['peak_mib']:.1f} MiB; launches {per_batch}; "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return tuple(int(v) for v in total)
+
+
+def phase_accuracy_capstone(counters, card: str, workdir: str) -> tuple[int, ...]:
+    """Phase 20: (a), (b) and (c).  Returns the (K1, K2, shortcut) launches
+    of the phase."""
+    total = np.zeros(3, np.int64)
+    total += phase_accuracy_loop(counters, card)
+    total += phase_flagship_capstone(counters, card, workdir)
+    total += phase_capstone_variants(counters, card, workdir)
+    log(f"  phase 20: (K1, K2, shortcut) launches {tuple(int(v) for v in total)}")
+    return tuple(int(v) for v in total)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
@@ -1879,23 +2002,30 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     bench_launches = phase_bench(counters, card)
     log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        log("phase 20: the synthetic accuracy loop and the accuracy capstone (QAT -> convert -> K1 at 416)")
+        t0 = time.perf_counter()
+        capstone_launches = phase_accuracy_capstone(counters, card, workdir)
+        log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
     log(f"  main-path K1 launches: yolov3-tiny server {launches[0]}, yolov3 server {v3_launches[0]}, "
         f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}, "
         f"TP engine {tp_launches}, WordTree engine {tree_launches}, parity harness {parity_launches[0]}, "
-        f"benchmarks and dry run {bench_launches[0]} (shortcut {bench_launches[2]})")
+        f"benchmarks and dry run {bench_launches[0]} (shortcut {bench_launches[2]}), accuracy loop and "
+        f"capstones {capstone_launches[0]} (shortcut {capstone_launches[2]})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:173",
                  launches[0] + v3_launches[0] + v2_launches[0] + cli_launches + tp_launches + tree_launches
-                 + parity_launches[0] + bench_launches[0],
+                 + parity_launches[0] + bench_launches[0] + capstone_launches[0],
                  errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),
         sc.entry("shortcut", "yolo_quantization_tpu_torch/csrc/shortcut.cu",
-                 "yolo_quantization_tpu/infer/engine.py:428-469", main_launches["v3"][2] + bench_launches[2],
+                 "yolo_quantization_tpu/infer/engine.py:428-469",
+                 main_launches["v3"][2] + bench_launches[2] + capstone_launches[2],
                  errors.worst["shortcut"]),
         k3["a"].entry("orientation_a", "yolo_quantization_tpu_torch/csrc/gemm_probe.cu",
                       "scripts/mxu_orientation_probe.py:47", probe_launches["orientation_a"],

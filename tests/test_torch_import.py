@@ -36,7 +36,9 @@ def test_every_module_imports_with_jax_blocked():
               "core.tree", "train.classify", "train.segment",
               # the parity harness, the benchmarks and the dry run
               "parity", "parity.ctwin", "tools.parity_check", "tools.crossf1", "tools.bench",
-              "tools.bench_serving", "tools.bench_train", "tools.dryrun"):
+              "tools.bench_serving", "tools.bench_train", "tools.dryrun",
+              # the synthetic accuracy loop and the accuracy capstone
+              "tools.synthetic_accuracy_loop", "tools.accuracy_capstone"):
         assert f"yolo_quantization_tpu_torch.{m}" in mods
     code = "\n".join([
         "import importlib, sys",

@@ -422,13 +422,18 @@ class Engine:
             self._size_cache[(height, width)] = eng
         return eng
 
-    def _input(self, images: np.ndarray) -> torch.Tensor:
+    def _input(self, images) -> torch.Tensor:
+        """numpy images, or a tensor on any device (moved to the engine's)."""
         net = self.program.net
-        if images.shape[1:] != (net.height, net.width, net.channels):
+        if tuple(images.shape[1:]) != (net.height, net.width, net.channels):
             raise ValueError(
                 f"engine expects {(net.height, net.width, net.channels)} images, "
-                f"got {images.shape[1:]}; letterbox to the network size first"
+                f"got {tuple(images.shape[1:])}; letterbox to the network size first"
             )
+        if isinstance(images, torch.Tensor):
+            if images.dtype not in (torch.float32, torch.uint8):
+                raise ValueError(f"images must be float32 or uint8, got {images.dtype}")
+            return images.to(self.device).contiguous()
         if images.dtype not in (np.float32, np.uint8):
             raise ValueError(f"images must be float32 or uint8, got {images.dtype}")
         return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
@@ -453,8 +458,9 @@ class Engine:
 
     def predict(self, images: np.ndarray, flip: bool = False):
         """images: (N, H, W, 3) float32 letterboxed to the network size, or
-        uint8 pixel codes.  ``flip`` averages the yolo heads over the
-        horizontal mirror (the reference's `detector valid2`).  Returns numpy
+        uint8 pixel codes; numpy, or a tensor (one already on the card is
+        not copied).  ``flip`` averages the yolo heads over the horizontal
+        mirror (the reference's `detector valid2`).  Returns numpy
         (boxes, obj, cls) top-k."""
         return self.predict_async(images, flip=flip)()
 

@@ -95,10 +95,13 @@ class FloatEngine:
         return eng
 
     def _input(self, images) -> torch.Tensor:
+        """numpy images, or a tensor on any device (moved to the engine's)."""
         net = self.net
         if tuple(images.shape[1:]) != (net.height, net.width, net.channels):
             raise ValueError(f"engine expects {(net.height, net.width, net.channels)} images, "
                              f"got {tuple(images.shape[1:])}")
+        if isinstance(images, torch.Tensor):
+            return images.to(self.device, torch.float32).contiguous()
         return torch.as_tensor(np.ascontiguousarray(images, np.float32), device=self.device)
 
     def predict(self, images: np.ndarray, flip: bool = False):
