@@ -9,10 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the four kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
      gemm_probe.cu, shortcut.cu), one nvcc each, all started together; print
      each kernel's ptxas registers, spills and static shared memory, and its
-     IMMA (int8 tensor-core) and IDP (__dp4a) instructions from cuobjdump's
-     SASS; K1's int8 instantiations, every K2 instantiation and both probe
-     kernels must hold IMMA, and K1's symmetric ones, K2's and
-     orientation_b no IDP;
+     IMMA (int8 mma.sync), IGMMA (int8 wgmma) and IDP (__dp4a) instructions
+     from cuobjdump's SASS; K1's mma.sync instantiations, every K2
+     instantiation and both probe kernels must hold IMMA, K1's wgmma
+     instantiations IGMMA and no IMMA, and K1's symmetric ones (both
+     designs), K2's and orientation_b no IDP;
   3. K1 (qconv) vs its plain PyTorch version, bit for bit: every flagship
      conv shape at 416x416, at batch 2 plain and with each reference-engine
      option (asymmetric w_zp, per-image zp and (N,Co) bias/m, exact_leaky,
@@ -24,7 +25,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      The yolov2 family's shapes (GEMM K 4,608 / 9,216 / 11,520 at 13x13, the
      passthrough 1x1, the 125-channel head) at batch 2 and 16.  Then stride
      2: yolov3's five stride-2 convs at batch 2 and 16 and with each option,
-     odd maps (13 -> 7, 9x11), Cin 3 and 6, every block tile;
+     odd maps (13 -> 7, 9x11), Cin 3 and 6, every block tile; then
+     yolov3's stride-1 shapes from Ci 64 (208x208 to 13x13) at batch 2
+     (plain, asymmetric, the parity options) and 16.  Every case that K1's
+     wgmma design can run (Ci % 64 == 0, k 1 or 3) runs in its routed
+     design and again forced onto the other, each launch counted under the
+     design that ran;
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
      batch 2, every activation, per-image zp/bias/m, exact_leaky, and at
      batch 16 (the timed shapes) plain and with the per-image options;
@@ -47,7 +53,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      on batches of 2, all 107 layers: "v3" (synthetic ranges) and
      "v3-perturbed" (ranges off the synthetic rationals, asymmetric
      weights, dynamic_input, exact_leaky), 75 K1 + 23 shortcut launches per
-     forward; each engine's predict is a main path with counted launches;
+     forward; each engine's predict is a main path with counted launches,
+     K1's also by design: 10 wgmma + 3 mma.sync a flagship forward (s2d 10
+     + 0, int16 13 on its own kernel), 67 + 8 a yolov3 forward;
   7. flip TTA and at_size(320) agree between GPU and CPU for yolov3-tiny and
      yolov3, and f1_rows over GPU and CPU predictions gives equal counts;
   8. Servers with the (1, 4, 16) bucket ladder answer seeded requests of
@@ -56,9 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. timings, printed and not asserted
      (yolo_quantization_tpu_torch/tools/kernel_timings.py, which also runs
      alone): each kernel graph-timed (its device time) beside its eager
-     time, its bound, the plain version and torch._int_mm; K1 on yolov3's
-     stride-2 convs; the shortcut kernel per yolov3 stage; the engines'
-     device forwards;
+     time, its bound, the plain version and torch._int_mm; K1's wgmma convs
+     in both designs, in turns; K1 on yolov3's stride-2 convs and on its
+     stride-1 shapes from Ci 64 at batch 16 and 64; the shortcut kernel per
+     yolov3 stage; the engines' device forwards;
  10. the QAT forward and backward, GPU against CPU (tools/qat_check.py):
      TF32 left at PyTorch's default, a float conv and its weight gradient
      must match float64 to float32 accuracy (TF32 off inside the port);
@@ -241,8 +250,8 @@ def ptxas_report(log_text: str) -> dict[str, dict]:
 
 
 def sass_counts(lib_path) -> dict[str, dict]:
-    """IMMA (int8 tensor-core mma) and IDP (__dp4a) instructions per kernel
-    in a built library, from cuobjdump --dump-sass."""
+    """IMMA (int8 mma.sync), IGMMA (int8 wgmma) and IDP (__dp4a)
+    instructions per kernel in a built library, from cuobjdump --dump-sass."""
     from yolo_quantization_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -252,9 +261,10 @@ def sass_counts(lib_path) -> dict[str, dict]:
     for line in sass.splitlines():
         if m := re.match(r"\s*Function : (\S+)", line):
             fn = m.group(1)
-            out[fn] = {"IMMA": 0, "IDP": 0}
+            out[fn] = {"IMMA": 0, "IGMMA": 0, "IDP": 0}
         elif fn:
             out[fn]["IMMA"] += bool(re.search(r"\bIMMA\b", line))
+            out[fn]["IGMMA"] += bool(re.search(r"\bIGMMA\b", line))
             out[fn]["IDP"] += bool(re.search(r"\bIDP\b", line))
     return out
 
@@ -273,11 +283,14 @@ def demangle(names) -> dict[str, str]:
 
 
 def phase_kernel_report(libs) -> None:
-    """Print ptxas and SASS facts per kernel; K1's int8 instantiations, K2's
-    and the probe kernels must run on IMMA, and K1's symmetric int8 ones,
-    K2's and orientation_b must hold no IDP (no product on __dp4a)."""
+    """Print ptxas and SASS facts per kernel; K1's mma.sync instantiations,
+    K2's and the probe kernels must run on IMMA, K1's wgmma ones on IGMMA
+    with no IMMA, and K1's symmetric int8 ones (both designs), K2's and
+    orientation_b must hold no IDP (no product on __dp4a).  Returns the
+    wgmma instantiations' names."""
     from yolo_quantization_tpu_torch.ops import _build
 
+    wgmma = []
     for name in libs:
         ptx = ptxas_report(_build.build_log.get(name, ""))
         sass = sass_counts(_build.library_path(name))
@@ -287,15 +300,24 @@ def phase_kernel_report(libs) -> None:
             regs = info.get("registers", "?")
             log(f"    {name}: {readable[fn]}: {regs} registers, spill stores/loads "
                 f"{info.get('spill', '?')} B, static smem {info.get('smem', '?')} B, "
-                f"IMMA {counts['IMMA']}, IDP {counts['IDP']}")
+                f"IMMA {counts['IMMA']}, IGMMA {counts['IGMMA']}, IDP {counts['IDP']}")
             if (name in ("s2d_qconv", "gemm_probe") or "qconv_mma" in fn) and counts["IMMA"] == 0:
                 raise AssertionError(f"{readable[fn]}: no IMMA instruction")
+            if "qconv_wgmma" in fn:
+                wgmma.append(readable[fn])
+                if counts["IGMMA"] == 0 or counts["IMMA"]:
+                    raise AssertionError(f"{readable[fn]}: IGMMA {counts['IGMMA']}, IMMA {counts['IMMA']}; "
+                                         "the wgmma design must run on wgmma alone")
             if (name == "s2d_qconv" or "orientation_b" in fn) and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a product runs on __dp4a")
-            args = re.search(r"qconv_mma_kernelI((?:L[a-z]\d+E)+)E", fn)
-            asym = args and re.findall(r"L[a-z](\d+)E", args.group(1))[4] == "1"
+            # the ASYM flag: the fifth template argument of either design's kernel
+            args = re.search(r"qconv_(mma|wgmma)_kernelI((?:L[a-z]\d+E)+)E", fn)
+            asym = args and re.findall(r"L[a-z](\d+)E", args.group(2))[4] == "1"
             if args and not asym and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a symmetric int8 conv runs __dp4a")
+    if not wgmma:
+        raise AssertionError("no wgmma instantiation of K1 in the build")
+    return wgmma
 
 
 class Errors:
@@ -382,6 +404,22 @@ def v2_conv_cases():
     return cases
 
 
+def v3_conv_cases():
+    """K1 on yolov3's stride-1 shapes from Ci 64 (its 13x13, 26x26, 52x52,
+    104x104 and 208x208 convs, the wgmma design's), in conv_cases' form: at
+    batch 2 plain, asymmetric and with the parity engine's options, at 16
+    plain."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY
+    from yolo_quantization_tpu_torch.tools.kernel_timings import v3_layers
+
+    cases = []
+    for (h, w, ci, co, k, pad) in v3_layers():
+        for n, variant in ((2, ""), (2, "asym"), (2, "parity"), (16, "")):
+            cases.append((f"v3_{h}x{ci}_{co}_k{k}_b{n}{'_' + variant if variant else ''}", n, h, w, ci, co,
+                          k, pad, ACT_LEAKY, True, False, variant, 1))
+    return cases
+
+
 # K1 at stride 2 (n, h, w, ci, co, k, pad) by loader and by the block tile
 # the launch table gives them on a 132-SM card (as
 # tests/test_torch_qconv.py::STRIDE2_EDGES): the byte gather (Ci 3, 6, 8),
@@ -429,6 +467,7 @@ def phase_k1(cuda_qconv, qconv, rng, errors, cases=None):
     from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
     cases = conv_cases() if cases is None else cases
+    counts = {}  # cases run by design
     for (name, n, h, w, ci, co, k, pad, act, out_i8, pool, variant, stride) in cases:
         x, wt, bias, m = random_layer(rng, n, h, w, ci, co, k)
         dyn = variant in ("dyn", "all", "all_pow2_m", "parity")
@@ -460,14 +499,25 @@ def phase_k1(cuda_qconv, qconv, rng, errors, cases=None):
             ref = qconv.quantized_conv2d(xt, wt_t, b_t, m_t, zp_t, wzp_t, out_zp, stride=stride,
                                          pad=pad, act=act, symmetric=w_zp is None,
                                          out_i8=out_i8, **opts)
-        got = cuda_qconv.quantized_conv2d_cuda(
-            xt, wt_t, b_t, m_t, zp_t, stride=stride, pad=pad, act=act, out_zp_static=out_zp,
-            fuse_pool=pool, out_i8=out_i8, w_zp=wzp_t, **opts,
-        )
-        errors.check("qconv", name, got, ref)
+        # the routed design, then the other one forced on the same inputs where
+        # the wgmma design can run the conv
+        design = cuda_qconv.design(ci, k, co, opts["carrier"])
+        two = cuda_qconv.wgmma_capable(ci, k, opts["carrier"])
+        for forced in (None, "mma.sync" if design == "wgmma" else "wgmma") if two else (None,):
+            reset_counts(cuda_qconv)
+            got = cuda_qconv.quantized_conv2d_cuda(
+                xt, wt_t, b_t, m_t, zp_t, stride=stride, pad=pad, act=act, out_zp_static=out_zp,
+                fuse_pool=pool, out_i8=out_i8, w_zp=wzp_t, _design=forced, **opts,
+            )
+            ran = forced or design
+            if cuda_qconv.design_launches[ran] != 1:
+                raise AssertionError(f"{name}: launched {cuda_qconv.design_launches}, expected {ran}")
+            errors.check("qconv", f"{name} ({ran})", got, ref)
+            counts[ran] = counts.get(ran, 0) + 1
         log(f"  {name:24s} x{(n, h, w, ci)} w{(k, k, ci, co)} s{stride} act={act} out_i8={out_i8} "
-            f"pool={pool} {variant or 'plain'}: equal")
-    return sum(c[-1] == 1 for c in cases), sum(c[-1] == 2 for c in cases)
+            f"pool={pool} {variant or 'plain'}: equal ({design}"
+            f"{' and ' + ('mma.sync' if design == 'wgmma' else 'wgmma') + ' forced' if two else ''})")
+    return sum(c[-1] == 1 for c in cases), sum(c[-1] == 2 for c in cases), counts
 
 
 # K2's tile edges (n, h, w, c, o), by the block tile its launch table gives
@@ -599,29 +649,42 @@ def phase_shortcut(cuda_shortcut, shortcut, rng, errors):
 
 
 def engine_configs():
-    """name -> (program, options, launches per forward (K1, K2, shortcut)):
-    yolov3-tiny's configurations, then yolov3's (``v3``, ``v3-perturbed``)
-    as ``tools/profile_engine.py`` builds them."""
+    """name -> (program, options, launches per forward (K1, K2, shortcut),
+    K1's launches by design (wgmma, mma.sync, int16)): yolov3-tiny's
+    configurations, then yolov3's (``v3``, ``v3-perturbed``) as
+    ``tools/profile_engine.py`` builds them.  wgmma takes the convs from Ci
+    64 (the flagship's layers 6-22, 67 of yolov3's 75), mma.sync the stem,
+    the narrow early layers and the 1x1 convs sent back (yolov3's 2, 6, 9,
+    93 and 105; PERF.md)."""
     from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
     from yolo_quantization_tpu_torch.tools.profile_engine import configurations
 
     flagship = flagship_program(classes=5, size=416, seed=0)
     return {
-        "flagship": (flagship, {}, (13, 0, 0)),
-        "s2d": (flagship, dict(use_s2d=True), (10, 3, 0)),
+        "flagship": (flagship, {}, (13, 0, 0), (10, 3, 0)),
+        "s2d": (flagship, dict(use_s2d=True), (10, 3, 0), (10, 0, 0)),
         "parity": (parity_program(classes=5, size=416, seed=0),
-                   dict(dynamic_input=True, exact_leaky=True), (13, 0, 0)),
-        "int16": (flagship, dict(carrier="int16"), (13, 0, 0)),
+                   dict(dynamic_input=True, exact_leaky=True), (13, 0, 0), (10, 3, 0)),
+        "int16": (flagship, dict(carrier="int16"), (13, 0, 0), (0, 0, 13)),
         # each fused conv+pool as K1 then the integer pool: every layer its own output
-        "flagship-unfused": (flagship, dict(fuse_pool=False), (13, 0, 0)),
-        **{name: (program, option, (75, 0, 23))
+        "flagship-unfused": (flagship, dict(fuse_pool=False), (13, 0, 0), (10, 3, 0)),
+        **{name: (program, option, (75, 0, 23), (67, 8, 0))
            for name, (program, option) in configurations(v3=True).items()},
     }
 
 
 def reset_counts(*wrappers):
     for w in wrappers:
-        w.launches = 0
+        if hasattr(w, "reset_launches"):  # K1: its per-design counts too
+            w.reset_launches()
+        else:
+            w.launches = 0
+
+
+def design_split(cuda_qconv) -> tuple[int, int, int]:
+    """K1's launches since the last reset by design: (wgmma, mma.sync, int16)."""
+    d = cuda_qconv.design_launches
+    return d["wgmma"], d["mma.sync"], d["int16"]
 
 
 def phase_engines(Engine, counters, rng):
@@ -630,7 +693,7 @@ def phase_engines(Engine, counters, rng):
     # the parity engine at batch 16 too: its large layers take K1's 128x128 tile there
     x16 = rng.uniform(0, 1, (16, 416, 416, 3)).astype(np.float32)
     engines, main_launches, int8_outs = {}, {}, {}
-    for cname, (program, option, expected) in engine_configs().items():
+    for cname, (program, option, expected, split) in engine_configs().items():
         eng_gpu = Engine(program, device="cuda", **option)
         eng_cpu = Engine(program, device="cpu", **option)
         engines[cname] = eng_gpu
@@ -645,6 +708,9 @@ def phase_engines(Engine, counters, rng):
             if got != expected:
                 raise AssertionError(f"{cname}: (K1, K2, shortcut) launches per forward {got}, "
                                      f"expected {expected}")
+            if design_split(counters[0]) != split:
+                raise AssertionError(f"{cname}: K1 launches by design (wgmma, mma.sync, int16) "
+                                     f"{design_split(counters[0])}, expected {split}")
             heads_c, outs_c = eng_cpu.raw_heads(batch, return_outputs=True)
             for i, (g, c) in enumerate(zip(outs_g, outs_c)):
                 if g.dtype != c.dtype or not np.array_equal(g, c):
@@ -660,19 +726,21 @@ def phase_engines(Engine, counters, rng):
                         raise AssertionError(f"int16 carrier: layer {i} differs from the int8 engine")
             log(f"  {cname} {name} batch of {len(batch)}: all {len(outs_g)} layer outputs equal to the CPU "
                 f"engine{' and to the int8 engine' if cname == 'int16' else ''}; "
-                f"{expected[0]} K1 + {expected[1]} K2 + {expected[2]} shortcut launches")
+                f"{expected[0]} K1 ({split[0]} wgmma, {split[1]} mma.sync, {split[2]} int16) + "
+                f"{expected[1]} K2 + {expected[2]} shortcut launches")
         # the engine's predict is this configuration's main path
         reset_counts(*counters)
         boxes, obj, cls = eng_gpu.predict(batches[0][1])
         main_launches[cname] = tuple(c.launches for c in counters)
-        if main_launches[cname] != expected:
-            raise AssertionError(f"{cname} predict launched {main_launches[cname]}, expected {expected}")
+        if main_launches[cname] != expected or design_split(counters[0]) != split:
+            raise AssertionError(f"{cname} predict launched {main_launches[cname]} (K1 by design "
+                                 f"{design_split(counters[0])}), expected {expected} ({split})")
         if not (np.isfinite(boxes).all() and np.isfinite(cls).all()
                 and (obj >= 0).all() and (obj <= 1).all()):
             raise AssertionError(f"{cname} predict: non-finite boxes or objectness outside [0,1]")
         log(f"  {cname} predict: boxes {boxes.shape} finite, objectness in "
-            f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {expected[0]}, K2 {expected[1]}, "
-            f"shortcut {expected[2]}")
+            f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {expected[0]} (wgmma {split[0]}, mma.sync "
+            f"{split[1]}, int16 {split[2]}), K2 {expected[1]}, shortcut {expected[2]}")
     return engines, main_launches
 
 
@@ -1917,18 +1985,21 @@ def main(argv: list[str]) -> int:
         for line in _build.build_log.get(name, "").splitlines():
             if "error" in line:
                 log(f"    nvcc: {line.strip()}")
-    phase_kernel_report(libs)
+    wgmma = phase_kernel_report(libs)
+    log(f"  {len(wgmma)} wgmma instantiations of K1, each with IGMMA and no IMMA")
 
     rng = np.random.default_rng(0)
     errors = Errors()
     log("phase 3: K1 (qconv) vs plain version (bit for bit)")
-    n1, n2 = phase_k1(cuda_qconv, qconv, rng, errors)
-    log(f"  {n1} stride-1 and {n2} stride-2 cases equal")
+    n1, n2, by_design = phase_k1(cuda_qconv, qconv, rng, errors)
+    log(f"  {n1} stride-1 and {n2} stride-2 cases equal; runs by design {by_design}")
     # the phases this slice added draw from their own generator, so the
     # earlier phases keep the inputs they had
     rng_v2 = np.random.default_rng(7)
-    n3, _ = phase_k1(cuda_qconv, qconv, rng_v2, errors, v2_conv_cases())
-    log(f"  {n3} cases on the yolov2 family's shapes equal")
+    n3, _, by_design = phase_k1(cuda_qconv, qconv, rng_v2, errors, v2_conv_cases())
+    log(f"  {n3} cases on the yolov2 family's shapes equal; runs by design {by_design}")
+    n4, _, by_design = phase_k1(cuda_qconv, qconv, np.random.default_rng(11), errors, v3_conv_cases())
+    log(f"  {n4} cases on yolov3's stride-1 shapes from Ci 64 equal; runs by design {by_design}")
     log("phase 4: K2 (s2d_qconv) vs plain version (bit for bit)")
     log(f"  {phase_k2(cuda_s2d, qconv, rng, errors)} cases equal")
     log("phase 5: K3 (orientation probe) at the script's sizes vs plain version (bit for bit)")

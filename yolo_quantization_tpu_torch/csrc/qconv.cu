@@ -17,8 +17,10 @@
 // tensor) for the padding, per-image (N, Co) bias and m read by pointer,
 // exact_leaky, and the int16 carrier.
 //
-// The int8 carrier is an implicit GEMM on the int8 tensor cores.  It
-// replaces a __dp4a kernel that ran at about 2% of the card's int8 roofline.
+// The int8 carrier is an implicit GEMM on the int8 tensor cores, in two
+// designs (below: mma.sync for the bytes-bound convs, wgmma for the
+// operation-bound ones).  It replaced a __dp4a kernel that ran at about 2%
+// of the card's int8 roofline.  The mma.sync design:
 //   - GEMM view: M = output pixels, N = Co, K = k*k*Ci in HWIO flatten order
 //     (tap-major, channel-minor), padded to 32.  B is the packed weights
 //     (Co_pad, K_pad), K contiguous (ops/cuda_qconv.py::pack_weights).
@@ -67,16 +69,80 @@
 //   - Integer sums do not depend on their order (int32 wraps alike), so the
 //     tile shapes and K order are free; bit-exactness rests on yq::requant.
 //
+// Two int8 designs share the GEMM view, the loaders' arithmetic and the
+// epilogue; launch_tile picks one per conv (wgmma_route):
+//
+// wgmma (Ci % 64 == 0, K = 1 or 3, stride 1 or 2, symmetric or asymmetric,
+// with or without the fused pool): the operation-bound convs (Ci >= 64 puts
+// K at 64 to 11,520), which mma.sync ran at 9-14% of the int8 ops bound.
+//   - Products: wgmma.mma_async m64nNk32 s32.s8.s8 (N = 32, 64, 128), the
+//     only route to Hopper's full tensor-core rate.  Both operands come
+//     from shared memory, K-major (8-bit wgmma has no transpose), in the
+//     64- or 128-byte swizzle (hopper.cuh): a K slab is 64 or 128 channels
+//     of one tap, which is why the design needs Ci % 64 == 0.
+//   - Warp specialisation: one producer warpgroup keeps a ring of 3-8 slabs
+//     in flight (a full and an empty mbarrier per slot); one or two
+//     consumer warpgroups issue the wgmmas and hold the int32 sums in
+//     registers.  A slot goes back to the producer only after the wgmma
+//     group that read it has completed (wait_group 1: one group kept in
+//     flight).
+//   - B (the packed weights) arrives by TMA: a 2-D tensor map over
+//     (Co_pad, K_pad) with (BN, BK) boxes in the slab's swizzle, encoded on
+//     the host through the driver's cuTensorMapEncodeTiled and cached per
+//     (pointer, shape, box).  Rows past Co_pad arrive as zeros, so
+//     pack_weights' layout is unchanged.
+//   - A (the implicit im2col) is gathered by the producer with 16-byte
+//     cp.async copies straight into the swizzled layout, as the kVec loader
+//     does: a row's slab is one pixel's contiguous channels; a pixel
+//     outside the map gets the zero-point word (per image), stored by the
+//     producer; stride 2 only moves the row origin to (oy s, ox s).  Each
+//     producer thread fences its landed copies to the async proxy
+//     (fence.proxy.async) before its warp arrives on the full barrier.
+//     Taken over TMA's im2col mode, which was built and held bit-exact but
+//     ran slower on the H100 in development (its code is not kept), and
+//     which fills out-of-map taps with 0, not the zero point, so it needed
+//     a per-tap weight-sum correction in the epilogue and another for
+//     ASYM's patchsum.  Clusters of two blocks sharing B by TMA multicast
+//     ran slower still.
+//   - The fused pool: a consumer thread holds rows 16 w + g and 16 w + g + 8
+//     of each m64 tile, so the pooled instantiations give a warpgroup two
+//     m64 tiles and order rows as pixel (dy, dx) = (tile, half) of window
+//     8 w + g (wrow_pixel); the thread maxes its four accumulators.
+//   - ASYM: consumers hold no A fragments, so before the wgmmas each thread
+//     sums 16-byte chunks of its rows in shared memory (__dp4a with ones),
+//     and the quad's shuffles complete the row sums.
+//   - Epilogue: the output tile is staged in shared memory and written with
+//     16-byte row stores (byte stores where Co is not a multiple of 16).
+//   - Block tile (launch_wgmma_tile), from timings on the H100: 64 x 128
+//     with two blocks an SM, 128 x 64 or 64 x 64 where that grid would
+//     leave SMs idle (the 13x13 layers), N 32 for narrow Co.
+//   - What bounds it: the operands come from L2, and a 64 x 128 tile makes
+//     43 MACs per byte it reads, far below the tensor cores' rate over
+//     L2's; larger tiles left too few blocks in flight (PERF.md).  The 1x1
+//     convs with a GEMM depth of at most 128, and the 255-channel heads
+//     with one of at most 512, ran slower than on mma.sync and route there
+//     (wgmma_route).
+//   - No fallback: a failure of this design is returned, never retried on
+//     mma.sync.
+//
+// mma.sync (every other int8 conv: the pooled 3-channel stem, Ci % 64 != 0;
+// these are bound by bytes, where wgmma would not help) is described above.
+//
 // The int16 carrier (carrier="int16", the reference's s16 x s16 -> s32 MKL
 // cross-check) keeps a scalar kernel: Hopper has no s16 tensor-core mma, and
 // its point is arithmetic different from the int8 path.  Codes are staged as
 // int16 pairs and multiplied with plain int32 multiply-adds.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -430,14 +496,438 @@ cudaError_t launch_mma(const Params& p, int dev, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The block tile by N = Co, and by M where the large tile would leave SMs
+// ---- the wgmma design: the operation-bound int8 convs (Ci % 64 == 0) ----
+
+constexpr int kRouteMma = 1, kRouteWgmma = 2, kRouteInt16 = 3;  // reported to the caller
+constexpr int kProducerThreads = 128;  // one producer warpgroup
+
+// The shared layout of a K slab of BK bytes a row (one tap's BK channels):
+// rows of BK bytes, the 16-byte chunk c of row r at chunk c ^ swizzle(r)
+// (hopper.cuh: the 64-byte swizzle for BK 64, the 128-byte one for 128).
+template <int BK>
+struct Slab {
+  static_assert(BK == 64 || BK == 128, "K slabs of 64 or 128 bytes");
+  static constexpr int CHUNKS = BK / 16;
+  __host__ __device__ static constexpr int swizzle(int r) { return BK == 128 ? r & 7 : (r >> 1) & 3; }
+  __device__ static uint64_t desc(uint32_t addr) {
+    return BK == 128 ? yq::desc_sw128(addr) : yq::desc_sw64(addr);
+  }
+};
+
+// The tile of a wgmma instantiation: WGS consumer warpgroups, each MT m64
+// tiles of BN columns (MT = 2 with the fused pool: the four pixels of a
+// window sit in one thread's rows), K slabs of BK bytes, and the ring's
+// depth.
+template <int WGS, int MT, int BN, int BK>
+struct WTile {
+  static constexpr int BM = 64 * MT * WGS;
+  static constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
+  // the ring: up to 200 KB where registers leave one block an SM (256
+  // accumulator columns a block), else 112 KB, so two fit; 3 to 8 slabs
+  static constexpr int BUDGET = (WGS * MT * BN >= 256 ? 200 : 112) * 1024;
+  static constexpr int FIT = BUDGET / (A_BYTES + B_BYTES);
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  // A slabs a producer thread keeps in flight before it waits for the
+  // oldest: at most STAGES - 2, or it would wait for a slot whose release
+  // needs its own arrival
+  static constexpr int LAG = STAGES - 2;
+  // 1 KB of alignment slack, the ring, and a full and an empty barrier a stage
+  static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 16 * STAGES;
+  static_assert(STAGES >= 3, "ring");
+  static_assert(BN == 32 || BN == 64 || BN == 128, "wgmma_s8 is instantiated for N 32, 64, 128");
+  static_assert(MT * BN / 2 <= 128, "accumulator registers");
+};
+
+// The output pixel of GEMM row r under the wgmma design; false past the end.
+// With pool, row 64 mt + 16 w + 8 h + g of each 128-row group is pixel
+// (dy, dx) = (mt, h) of window 32 * group + 8 w + g, so a consumer thread,
+// which holds rows 16 w + g and 16 w + g + 8 of both m64 tiles, holds the
+// window's four pixels.
+__device__ __forceinline__ bool wrow_pixel(const Params& p, int r, int& img, int& oy, int& ox) {
+  if (p.pool) {
+    const int rr = r & 127;
+    const int win = (r >> 7) * 32 + ((rr >> 4) & 3) * 8 + (rr & 7);
+    if (win >= p.outs) return false;
+    const int pw = p.w_out >> 1, phw = (p.h_out >> 1) * pw;
+    img = win / phw;
+    const int rem = win - img * phw, py = rem / pw;
+    oy = 2 * py + (rr >> 6);
+    ox = 2 * (rem - py * pw) + ((rr >> 3) & 1);
+    return true;
+  }
+  return row_pixel(p, r, img, oy, ox);
+}
+
+// Warp-specialised implicit GEMM on wgmma.  Warpgroups 0 .. WGS-1 consume,
+// warpgroup WGS produces.  Per K slab kt (BK channels of one tap), ring
+// slot kt % S:
+//   producer: waits until the consumers have released the slot; thread 0
+//     asks TMA for B's (BN x BK) tile; every thread copies one 16-byte
+//     chunk of BM / (128 / CHUNKS) rows of A with cp.async (the zero-point
+//     word for a pixel outside the map) at its swizzled place; LAG slabs
+//     later it waits for those copies, fences them to the async proxy, and
+//     its warp arrives on the slot's full barrier.
+//   consumers: wait on the full barrier, issue MT * BK / 32 wgmma
+//     m64nBNk32 from the slot's descriptors, commit, wait until one group
+//     is pending, and release the previous slot on its empty barrier (a
+//     warp's lane 0, once the warp's wgmmas are done).  ASYM: each thread
+//     first sums CHUNKS / 4 16-byte chunks of each of its rows (the quad's
+//     four threads cover a row), completed by shuffles at the end.
+template <int WGS, int MT, int BN, int BK, bool ASYM>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+    qconv_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap w_map) {
+  using T = WTile<WGS, MT, BN, BK>;
+  using L = Slab<BK>;
+  constexpr int BM = T::BM, S = T::STAGES, LAG = T::LAG;
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  const uint32_t raw = yq::smem_addr(wsmem);
+  const uint32_t a_ring = (raw + 1023) & ~1023u;  // swizzled stages start on the pattern's 1 KB
+  const uint32_t b_ring = a_ring + S * T::A_BYTES;
+  const uint32_t bars = b_ring + S * T::B_BYTES;  // full[S], then empty[S]
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < S; ++s) {
+      yq::mbar_init(bars + 8 * s, kProducerThreads / 32 + 1);  // a producer warp's lane 0 each, + TMA
+      yq::mbar_init(bars + 8 * (S + s), WGS * 4);              // a consumer warp's lane 0 each
+    }
+    yq::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int nk = p.k_pad / BK;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  if (t >= WGS * 128) {  // ---- producer warpgroup ----
+    constexpr int RPP = kProducerThreads / L::CHUNKS;  // rows one pass covers
+    constexpr int ROWS = BM / RPP;  // rows a thread fills: pt / CHUNKS + RPP i, chunk pt % CHUNKS
+    const int pt = t - WGS * 128;
+    const int chunk = pt % L::CHUNKS, r0 = pt / L::CHUNKS;
+    const uint32_t dst0 = r0 * BK + ((chunk ^ L::swizzle(r0)) << 4);  // RPP keeps the swizzle
+    int a_img[ROWS], a_iy[ROWS], a_ix[ROWS];
+    uint32_t a_zp[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      int img = 0, oy = 0, ox = 0;
+      const bool valid = wrow_pixel(p, m0 + r0 + RPP * i, img, oy, ox);
+      const int zp = p.x_zp_img ? p.x_zp_img[img] : p.x_zp;
+      a_zp[i] = (uint32_t)(uint8_t)(int8_t)zp * 0x01010101u;
+      a_img[i] = img * p.h;
+      a_iy[i] = valid ? oy * p.stride - p.pad : kFar;
+      a_ix[i] = ox * p.stride - p.pad;
+    }
+    int dy = 0, dx = 0, c0 = 0;  // slab kt: tap (dy, dx), channels c0 .. c0 + BK - 1
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = kt % S;
+      if (kt >= S) yq::mbar_wait(bars + 8 * (S + slot), ((kt / S) - 1) & 1);
+      if (pt == 0) {
+        yq::mbar_arrive_expect_tx(bars + 8 * slot, T::B_BYTES);
+        yq::tma_load_2d(b_ring + slot * T::B_BYTES, &w_map, (dy * p.k + dx) * p.ci + c0, n0, bars + 8 * slot);
+      }
+      const uint32_t as = a_ring + slot * T::A_BYTES + dst0;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int iy = a_iy[i] + dy, ix = a_ix[i] + dx;
+        if ((unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_in) {
+          yq::cp_async16(as + i * RPP * BK,
+                         p.x + ((size_t)(a_img[i] + iy) * p.w_in + ix) * p.ci + c0 + chunk * 16, 16);
+        } else {
+          yq::st_shared_v4(as + i * RPP * BK, a_zp[i]);
+        }
+      }
+      yq::cp_async_commit();
+      if (kt >= LAG) {  // the thread's copies of slab kt - LAG have landed: one arrival for the warp
+        yq::cp_async_wait<LAG>();
+        yq::fence_proxy_async();
+        __syncwarp();
+        if ((pt & 31) == 0) yq::mbar_arrive(bars + 8 * ((kt - LAG) % S));
+      }
+      c0 += BK;
+      if (c0 == p.ci) {
+        c0 = 0;
+        if (++dx == p.k) {
+          dx = 0;
+          ++dy;
+        }
+      }
+    }
+    yq::cp_async_wait<0>();
+    yq::fence_proxy_async();
+    __syncwarp();
+    if ((pt & 31) == 0) {
+      for (int kt = nk > LAG ? nk - LAG : 0; kt < nk; ++kt) yq::mbar_arrive(bars + 8 * (kt % S));
+    }
+  } else {  // ---- consumer warpgroups ----
+    const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int row0 = wg * MT * 64;  // the warpgroup's first row in the block tile
+    int acc[MT][BN / 2];
+    int ps[MT][2];  // patchsum of rows 16 w + g and 16 w + g + 8 of each m64 tile (ASYM)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      ps[mt][0] = ps[mt][1] = 0;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        acc[mt][i] = 0;
+        yq::fence_operand(acc[mt][i]);
+      }
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = kt % S;
+      yq::mbar_wait(bars + 8 * slot, (kt / S) & 1);
+      const uint32_t as = a_ring + slot * T::A_BYTES + row0 * BK;
+      const uint32_t bs = b_ring + slot * T::B_BYTES;
+      if (ASYM) {  // physical chunks tq, tq + 4 of each row: the quad covers the row, in any order
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+            for (int c = tq; c < L::CHUNKS; c += 4) {
+              const uint4 v = yq::ld_shared_v4(as + (mt * 64 + 16 * warp + 8 * hh + g) * BK + c * 16);
+              ps[mt][hh] = __dp4a((int)v.x, 0x01010101, __dp4a((int)v.y, 0x01010101, ps[mt][hh]));
+              ps[mt][hh] = __dp4a((int)v.z, 0x01010101, __dp4a((int)v.w, 0x01010101, ps[mt][hh]));
+            }
+          }
+        }
+      }
+      yq::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          yq::wgmma_s8<BN>(acc[mt], L::desc(as + mt * 64 * BK + ks * 32), L::desc(bs + ks * 32));
+        }
+      }
+      yq::wgmma_commit();
+      yq::wgmma_wait<1>();  // the warp's wgmmas of slab kt - 1 are done: its lane 0 releases the slot
+      if (kt > 0 && lane == 0) yq::mbar_arrive(bars + 8 * (S + (kt - 1) % S));
+    }
+    yq::wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) yq::fence_operand(acc[mt][i]);
+    }
+    if (ASYM) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          ps[mt][hh] += __shfl_xor_sync(0xffffffffu, ps[mt][hh], 1);
+          ps[mt][hh] += __shfl_xor_sync(0xffffffffu, ps[mt][hh], 2);
+        }
+      }
+    }
+    // The epilogue stages the tile's output codes in shared memory (the
+    // A ring: every consumer warpgroup is past its last wgmma, every copy
+    // into it has landed), then writes whole rows with 16-byte stores: a
+    // thread's accumulators are two bytes of each of 8 rows, which stored
+    // directly would cost a partial write each.
+    yq::named_barrier_sync(1, WGS * 128);
+    constexpr int SST = BN + 16;  // staged row stride: a warp's 8 rows on distinct banks, 16-byte rows
+    static_assert(BM * SST <= S * T::A_BYTES, "the staged tile fits the A ring");
+    uint8_t* const stage = wsmem + (a_ring - raw);
+    const yq::Clamp cl = yq::clamp_of(p.e);
+    auto code = [&](int a, int o, int patchsum, size_t bm) {
+      if (ASYM) a = (int)((unsigned)a - (unsigned)__ldg(p.w_zp + o) * (unsigned)patchsum);
+      return (uint8_t)yq::requant(a, __ldg(p.e.bias + bm + o), __ldg(p.e.m + bm + o), p.e, cl);
+    };
+    if constexpr (MT == 2) {  // the fused pool (the only use of two m64 tiles a warpgroup)
+      const int wl = wg * 32 + 8 * warp + g;  // the window within the tile
+      const int win = (m0 >> 2) + wl;
+      if (win < p.outs) {
+        const int phw = (p.h_out >> 1) * (p.w_out >> 1);
+        const size_t bm = (size_t)(win / phw) * p.e.bm_stride;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = n0 + 8 * j + 2 * tq + e;
+            if (o >= p.co) continue;
+            int a = INT_MIN;  // the max over the window's pixels (dy, dx) = (q / 2, q % 2)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int v = acc[q >> 1][4 * j + 2 * (q & 1) + e];
+              a = max(a, ASYM ? (int)((unsigned)v - (unsigned)__ldg(p.w_zp + o) * (unsigned)ps[q >> 1][q & 1])
+                              : v);
+            }
+            stage[wl * SST + 8 * j + 2 * tq + e] =
+                (uint8_t)yq::requant(a, __ldg(p.e.bias + bm + o), __ldg(p.e.m + bm + o), p.e, cl);
+          }
+        }
+      }
+    } else {
+      const int hw = p.h_out * p.w_out;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rl = row0 + 16 * warp + 8 * hh + g;
+        const int r = m0 + rl;
+        if (r >= p.outs) continue;
+        const size_t bm = (size_t)(r / hw) * p.e.bm_stride;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = n0 + 8 * j + 2 * tq + e;
+            if (o < p.co) stage[rl * SST + 8 * j + 2 * tq + e] = code(acc[0][4 * j + 2 * hh + e], o, ps[0][hh], bm);
+          }
+        }
+      }
+    }
+    yq::named_barrier_sync(1, WGS * 128);
+    // the tile's rows (windows with the pool), BN codes each, to out
+    constexpr int TROWS = MT == 2 ? WGS * 32 : BM;
+    const int first = MT == 2 ? m0 >> 2 : m0;
+    if (n0 + BN <= p.co && p.co % 16 == 0) {
+      for (int idx = t; idx < TROWS * (BN / 16); idx += WGS * 128) {
+        const int rl = idx / (BN / 16), c = idx % (BN / 16);
+        if (first + rl >= p.outs) break;  // rows in order: the rest lie past the end too
+        *reinterpret_cast<uint4*>(p.out + (size_t)(first + rl) * p.co + n0 + 16 * c) =
+            *reinterpret_cast<const uint4*>(stage + rl * SST + 16 * c);
+      }
+    } else {
+      const int cols = min(BN, p.co - n0);
+      for (int idx = t; idx < TROWS * BN; idx += WGS * 128) {
+        const int rl = idx / BN, c = idx % BN;
+        if (first + rl >= p.outs) break;
+        if (c < cols) p.out[(size_t)(first + rl) * p.co + n0 + c] = stage[rl * SST + c];
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver entry point, from the driver library
+// that the CUDA runtime has already loaded (no -lcuda at build time).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of the packed weights (Co_pad rows of K_pad bytes) in boxes
+// of (bn rows, bk bytes) under the bk-byte swizzle, in a direct-mapped
+// table by (pointer, shape, box): an engine's weights keep their map, so
+// the per-call host cost stays a lookup, and a captured CUDA graph replays
+// the map it was captured with.
+cudaError_t weight_map(const Params& p, int bn, int bk, CUtensorMap& map) {
+  struct Entry {
+    const void* w;
+    int co_pad, k_pad, bn, bk;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 1024;
+  static Entry cache[kEntries];
+  static std::mutex mu;
+  const uint64_t hash = ((uint64_t)(uintptr_t)p.w >> 4) * 0x9E3779B97F4A7C15ull ^
+                        ((uint64_t)p.k_pad << 20 | (uint64_t)p.co_pad << 8 | (uint64_t)(bn + bk));
+  Entry& e = cache[(hash >> 32) % kEntries];
+  std::lock_guard<std::mutex> lock(mu);
+  if (e.w == p.w && e.co_pad == p.co_pad && e.k_pad == p.k_pad && e.bn == bn && e.bk == bk) {
+    map = e.map;
+    return cudaSuccess;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)p.k_pad, (cuuint64_t)p.co_pad};
+  const cuuint64_t strides[1] = {(cuuint64_t)p.k_pad};
+  const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bn};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(p.w), dims, strides,
+                              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  e = Entry{p.w, p.co_pad, p.k_pad, bn, bk, map};
+  return cudaSuccess;
+}
+
+template <int WGS, int MT, int BN, int BK, bool ASYM>
+cudaError_t launch_wgmma(const Params& p, int dev, cudaStream_t stream) {
+  using T = WTile<WGS, MT, BN, BK>;
+  const auto kernel = qconv_wgmma_kernel<WGS, MT, BN, BK, ASYM>;
+  static bool smem_set[yq::kMaxDevices] = {false};
+  if (!smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  CUtensorMap map;
+  const cudaError_t err = weight_map(p, BN, BK, map);
+  if (err != cudaSuccess) return err;
+  const long long rows = p.pool ? 4LL * p.outs : p.outs;
+  const dim3 grid((unsigned)((rows + T::BM - 1) / T::BM), (p.co + BN - 1) / BN);
+  kernel<<<grid, (WGS + 1) * 128, T::SMEM, stream>>>(p, map);
+  return cudaGetLastError();
+}
+
+// The convs the wgmma design takes: the int8 carrier (the caller's), Ci a
+// multiple of 64 (a slab is one tap's 64 or 128 channels), K = 1 or 3 --
+// but not the 1x1 convs it ran slower than mma.sync on the H100 (PERF.md):
+// a GEMM depth of at most 128 (yolov3's 1x1 convs at 208^2 and 104^2), and
+// a Co past 128 off the 16-byte store (the 255-channel heads) with a depth
+// of at most 512.  Mirrored by ops/cuda_qconv.py::design.
+__host__ __forceinline__ bool wgmma_takes(const Params& p) { return p.ci % 64 == 0 && (p.k == 1 || p.k == 3); }
+
+__host__ __forceinline__ bool wgmma_route(const Params& p) {
+  return wgmma_takes(p) && !(p.k == 1 && (p.ci <= 128 || (p.co > 128 && p.co % 16 && p.ci <= 512)));
+}
+
+// 128-byte slabs where Ci allows (the pooled tiles keep 64)
+template <int WGS, int MT, int BN, bool ASYM>
+cudaError_t launch_wgmma_bk(const Params& p, int dev, cudaStream_t s) {
+  if constexpr (MT == 1) {
+    if (p.ci % 128 == 0) return launch_wgmma<WGS, MT, BN, 128, ASYM>(p, dev, s);
+  }
+  return launch_wgmma<WGS, MT, BN, 64, ASYM>(p, dev, s);
+}
+
+// The wgmma block tile, from the H100's timings (PERF.md): 64 x 128, two
+// blocks an SM, where that grid gives every SM a block; else 128 x 64 for
+// a GEMM depth from 512 (or a grid that fills the card), else 64 x 64;
+// N 32 for Co up to 32 (128 x 32 where it fills the card); with the fused
+// pool, 128-row tiles of one warpgroup (MT = 2).
+template <bool ASYM>
+cudaError_t launch_wgmma_tile(const Params& p, int dev, int sms, cudaStream_t s) {
+  const long long rows = p.pool ? 4LL * p.outs : p.outs;
+  const auto blocks = [&](int bm, int bn) { return ((rows + bm - 1) / bm) * ((p.co + bn - 1) / bn); };
+  if (p.pool) {
+    if (p.co <= 32) return launch_wgmma_bk<1, 2, 32, ASYM>(p, dev, s);
+    if (p.co <= 64) return launch_wgmma_bk<1, 2, 64, ASYM>(p, dev, s);
+    return launch_wgmma_bk<1, 2, 128, ASYM>(p, dev, s);
+  }
+  if (p.co <= 32) {
+    return blocks(128, 32) >= sms ? launch_wgmma_bk<2, 1, 32, ASYM>(p, dev, s)
+                                  : launch_wgmma_bk<1, 1, 32, ASYM>(p, dev, s);
+  }
+  if (p.co > 64 && blocks(64, 128) >= sms) return launch_wgmma_bk<1, 1, 128, ASYM>(p, dev, s);
+  if (p.k_pad >= 512 || blocks(128, 64) >= sms) return launch_wgmma_bk<2, 1, 64, ASYM>(p, dev, s);
+  return launch_wgmma_bk<1, 1, 64, ASYM>(p, dev, s);
+}
+
+// The design, then the block tile.  wgmma takes what wgmma_route admits
+// (unless the caller forces a design, to compare the two); mma.sync the
+// rest: its tile by N = Co, and by M where the large tile would leave SMs
 // without a block (the 13x13 layers: M = 2,704 at batch 16).  The pooled
 // 3-channel stem and other Ci % 16 != 0 take their own loaders.
 template <bool ASYM>
-cudaError_t launch_tile(const Params& p, cudaStream_t s) {
+cudaError_t launch_tile(const Params& p, int force, int& route, cudaStream_t s) {
   int dev = 0, sms = 0;
   const cudaError_t err = yq::device_sms(dev, sms);
   if (err != cudaSuccess) return err;
+  if (force == kRouteWgmma && !wgmma_takes(p)) return cudaErrorInvalidValue;
+  if (force == kRouteWgmma || (force != kRouteMma && wgmma_route(p))) {
+    route = kRouteWgmma;
+    return launch_wgmma_tile<ASYM>(p, dev, sms, s);
+  }
+  route = kRouteMma;
   const auto blocks = [&](int bm, int bn) {
     return (long long)((p.rows + bm - 1) / bm) * ((p.co + bn - 1) / bn);
   };
@@ -664,12 +1154,16 @@ cudaError_t launch_i16_tile(const Params& p, int n, cudaStream_t s) {
 // returns the launch's cudaError_t (0 on success).  w is pack_weights'
 // (Co_pad, K_pad) layout; w_zp null means symmetric weights, x_zp_img null
 // the static x_zp; stride 1 or 2 (fuse_pool with stride 1 only);
-// bm_per_image selects (N, Co) bias/m; carrier16 the int16 carrier.
+// bm_per_image selects (N, Co) bias/m; carrier16 the int16 carrier;
+// design 0 routes by wgmma_route, 1 forces mma.sync, 2 forces wgmma on a
+// conv it takes (for comparing the two; the engine passes 0).  *route (if
+// not null) receives the design launched: 1 mma.sync, 2 wgmma, 3 the int16
+// kernel.
 extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const void* x_zp_img,
                         const void* bias, const void* m, void* out, int n, int h, int w_in,
                         int ci, int co, int k, int pad, int stride, int x_zp, int out_zp,
                         int act, int exact_leaky, int out_i8, int fuse_pool, int bm_per_image,
-                        int carrier16, void* stream) {
+                        int carrier16, int design, int* route, void* stream) {
   if (n < 1 || n > 65535 || k < 1 || k > kMaxK || ci < 1 || co < 1 || pad < 0 ||
       (stride != 1 && stride != 2) || (fuse_pool && stride != 1) || h + 2 * pad < k ||
       w_in + 2 * pad < k) {
@@ -716,10 +1210,13 @@ extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool asym = w_zp != nullptr;
   cudaError_t err;
+  int launched = 0;
   if (carrier16) {
+    launched = kRouteInt16;
     err = asym ? launch_i16_tile<true>(p, n, s) : launch_i16_tile<false>(p, n, s);
   } else {
-    err = asym ? launch_tile<true>(p, s) : launch_tile<false>(p, s);
+    err = asym ? launch_tile<true>(p, design, launched, s) : launch_tile<false>(p, design, launched, s);
   }
+  if (route) *route = launched;
   return (int)err;
 }

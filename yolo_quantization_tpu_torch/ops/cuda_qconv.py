@@ -3,8 +3,11 @@
 Replaces ``yolo_quantization_tpu/ops/pallas_qconv.py::pallas_quantized_conv2d``:
 a fused stride-1 or stride-2 conv, the requant epilogue, and optionally (at
 stride 1) the following darknet 2x2/s2 maxpool.  The int8 carrier is an
-implicit GEMM on the int8 tensor cores (``mma.sync`` s8) over the weights
-packed by ``pack_weights``.  Unlike the Pallas kernel it takes what the
+implicit GEMM on the int8 tensor cores over the weights packed by
+``pack_weights``, in two designs (``design``): ``wgmma`` (Hopper's
+warpgroup MMA, weights by TMA, a warp-specialised ring) for the
+operation-bound convs, Ci a multiple of 64; ``mma.sync`` s8 for the rest.
+Unlike the Pallas kernel it takes what the
 reference engine ran on XLA: stride 2 (yolov3's downsampling convs), any
 input channel count (the 3-channel stem), asymmetric weights, a per-image
 input zero point and (N, Co) bias/m (``dynamic_input``), ``exact_leaky``
@@ -12,7 +15,8 @@ and the int16 carrier.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/qconv.py``); on a CUDA tensor it launches the kernel or raises —
-there is no fallback.  ``launches`` counts kernel launches.
+there is no fallback.  ``launches`` counts kernel launches,
+``design_launches`` the same launches by the design the C side reports.
 """
 
 from __future__ import annotations
@@ -35,7 +39,10 @@ from yolo_quantization_tpu_torch.ops.qconv import (
 )
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+# the same launches by design ("wgmma", "mma.sync", "int16"); reset_launches zeroes both
+design_launches = {"wgmma": 0, "mma.sync": 0, "int16": 0}
 _launches_lock = threading.Lock()  # the server's threads launch concurrently
+_ROUTES = {1: "mma.sync", 2: "wgmma", 3: "int16"}  # yq_qconv's route codes
 
 ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6)
 _MAX_K = 3
@@ -48,13 +55,44 @@ def _library() -> ctypes.CDLL:
     fn = lib.yq_qconv
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 17
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     return lib
 
 
 def build() -> None:
     """Build (if needed) and load the kernel library."""
     _library()
+
+
+def reset_launches() -> None:
+    """Zero ``launches`` and ``design_launches``."""
+    global launches
+    with _launches_lock:
+        launches = 0
+        for key in design_launches:
+            design_launches[key] = 0
+
+
+def design(ci: int, k: int, co: int, carrier: str = "int8") -> str:
+    """The design the kernel launches for a conv (``qconv.cu::wgmma_route``):
+    ``wgmma`` for the int8 carrier with Ci a multiple of 64 (a K slab is one
+    tap's 64 or 128 channels) and K 1 or 3, at either stride, with any
+    option, but for the 1x1 convs that ran slower there on the H100 (Ci up
+    to 128; Co past 128 and not a multiple of 16 with Ci up to 512);
+    ``int16`` for that carrier; ``mma.sync`` for the rest (the 3-channel
+    stem and the narrow early layers, bound by bytes)."""
+    if carrier == "int16":
+        return "int16"
+    if not wgmma_capable(ci, k, carrier) or (k == 1 and (ci <= 128 or (co > 128 and co % 16 and ci <= 512))):
+        return "mma.sync"
+    return "wgmma"
+
+
+def wgmma_capable(ci: int, k: int, carrier: str) -> bool:
+    """The convs the wgmma design can run (``qconv.cu::wgmma_takes``), routed
+    there or not."""
+    return carrier == "int8" and ci % 64 == 0 and k in (1, 3)
 
 
 def pack_weights(w_i8: torch.Tensor) -> torch.Tensor:
@@ -136,6 +174,7 @@ def quantized_conv2d_cuda(
     w_zp: torch.Tensor | None = None,
     exact_leaky: bool = False,
     carrier: str = "int8",
+    _design: str | None = None,
 ) -> torch.Tensor:
     """Fused integer conv, stride 1 or 2 (darknet's output geometry, (H + 2
     pad - K) // stride + 1): the kernel's argument list is the Pallas
@@ -149,7 +188,10 @@ def quantized_conv2d_cuda(
     int32 tensor; w_zp: (Co,) int32 shifted weight zero points, None for
     symmetric weights.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with
     ``out_i8``, pooled to (N,Ho/2,Wo/2,Co) with ``fuse_pool`` (stride 1
-    only).
+    only).  ``_design`` ("mma.sync" or "wgmma") forces a design on a conv
+    that the wgmma design can run, whatever ``design`` routes it to; only
+    the timing tool and the smoke run pass it, to hold and time both
+    designs on the same conv.
     """
     global launches
     if stride not in _STRIDES:
@@ -171,6 +213,11 @@ def quantized_conv2d_cuda(
         raise ValueError(f"unsupported conv carrier {carrier!r}")
     if fuse_pool and (h_out % 2 or w_out % 2):
         raise ValueError("fuse_pool requires even conv output dims")
+    if _design not in (None, "mma.sync", "wgmma"):
+        raise ValueError(f"_design: 'mma.sync' or 'wgmma' may be forced, got {_design!r}")
+    if _design and not wgmma_capable(ci, k, carrier):
+        raise ValueError(f"_design: the wgmma design cannot run a {k}x{k} conv from {ci} channels ({carrier}), "
+                         "so there is no choice to force")
     x_zp = per_image_zp(x_zp_i32, n)
 
     if x_u8.device.type == "cpu":
@@ -206,16 +253,23 @@ def quantized_conv2d_cuda(
     out = torch.empty((n, oh, ow, co), dtype=torch.int8 if out_i8 else torch.uint8, device=dev)
 
     lib = _library()
+    route = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yq_qconv(
             x.data_ptr(), w_packed.data_ptr(), None if w_zp is None else w_zp.data_ptr(),
             zp_ptr, bias_i32.data_ptr(), m.data_ptr(), out.data_ptr(),
             n, h, w, ci, co, k, pad, stride, zp_static, int(out_zp_static), act, int(exact_leaky),
-            int(out_i8), int(fuse_pool), int(per_image), int(carrier == "int16"), stream,
+            int(out_i8), int(fuse_pool), int(per_image), int(carrier == "int16"),
+            {None: 0, "mma.sync": 1, "wgmma": 2}[_design], ctypes.byref(route), stream,
         )
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")
+    launched = _ROUTES.get(route.value)
+    if launched != (_design or design(ci, k, co, carrier)):
+        raise RuntimeError(f"qconv launched design {launched!r} (route {route.value}), expected "
+                           f"{_design or design(ci, k, co, carrier)!r}")
     with _launches_lock:
         launches += 1
+        design_launches[launched] += 1
     return out

@@ -5,15 +5,19 @@
 A kernel's time is its device time: 20 calls captured in one CUDA graph,
 replayed between CUDA events, so the wrapper's host cost (Python checks,
 ctypes) is left out; the eager back-to-back time, which includes that host
-cost, is printed beside it.  Per-layer K1 vs plain (and ``torch._int_mm``,
+cost, is printed beside it.  K1's convs that its wgmma design can run are
+timed in both designs in turns (routed, other, other, routed; the other
+forced by the wrapper's private ``_design``).  Per-layer K1 vs plain (and
+``torch._int_mm``,
 graph-timed, on the 1x1 layers its shape rules allow) on the flagship's 13
 convs and on yolov3's five stride-2 convs, K2 vs K1's fused stem per layer,
 the shortcut kernel on one shortcut of each yolov3 stage vs its plain
 chain, device forwards of the engines at batch 1, 16 and 64 (eager, CUDA
 events; yolov3, yolov2-tiny and yolov2 at 16 and 64), K1 on the yolov2
 family's new shapes (the large-K 13x13 convs, the passthrough 1x1 and the
-125-channel head), the probe cases vs ``torch._int_mm``.  Each time sits
-beside its bound.  Prints, checks nothing.
+125-channel head), yolov3's stride-1 convs at batch 16 and 64, the probe
+cases vs ``torch._int_mm``.  Each time sits beside its bound.  Prints,
+checks nothing.
 
 ``chip_smoke.py`` runs ``time_all`` as its last phase.  Run alone, the
 module builds the kernels and the engines itself; copied into an older
@@ -75,6 +79,38 @@ def random_layer(rng, n, h, w, ci, co, k):
     return x, wt, bias, m
 
 
+def designs(cuda_qconv, ci: int, k: int, co: int) -> tuple:
+    """The ``_design`` values to time a conv under: the routed one first,
+    then the other where the wgmma design can run the conv (a checkout
+    without the wgmma design has the default only)."""
+    if not hasattr(cuda_qconv, "design") or not cuda_qconv.wgmma_capable(ci, k, "int8"):
+        return (None,)
+    routed = cuda_qconv.design(ci, k, co)
+    return (routed, "mma.sync" if routed == "wgmma" else "wgmma")
+
+
+def time_designs(cuda_qconv, ci, k, co, call) -> dict:
+    """Graph-timed device time of ``call(_design)`` for each of ``designs``,
+    in turns (a, b, b, a): {design: ms}, the routed one also under None."""
+    ds = designs(cuda_qconv, ci, k, co)
+    order = ds + ds[::-1]
+    times = [graph_time_ms(lambda d=d: call(d)) for d in order]
+    ms = {d: (times[i] + times[len(order) - 1 - i]) / 2 for i, d in enumerate(ds)}
+    ms[None] = ms[ds[0]]
+    return ms
+
+
+def design_note(cuda_qconv, ci, k, co, ms: dict, bound: float) -> str:
+    """" [routed design]; other design x ms (share of bound)" where the
+    conv has two designs."""
+    if len(ms) < 3:
+        return ""
+    routed = cuda_qconv.design(ci, k, co)
+    other = "mma.sync" if routed == "wgmma" else "wgmma"
+    return (f" [{routed}]; {other} {ms[other]:.4f} ms ({bound / ms[other]:.1%} of bound, "
+            f"{ms[other] / ms[None]:.2f}x the routed time)")
+
+
 def flagship_layers():
     """(layer, h, w, ci, co, k, pad, act, in the fusion plan) of the 13 convs."""
     from yolo_quantization_tpu_torch.infer.engine import fusion_plan
@@ -110,6 +146,23 @@ def v3_shortcut_shapes():
 
     shapes = zoo.yolov3(classes=80, width=416, height=416).shapes()
     return [(i, *shapes[i]) for i in V3_SHORTCUTS]
+
+
+def v3_layers():
+    """(h, w, ci, co, k, pad) of yolov3's distinct stride-1 conv shapes at
+    416 whose Ci is a multiple of 64 (the wgmma design's), in layer order."""
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn.graph import ConvSpec
+
+    net = zoo.yolov3(classes=80, width=416, height=416)
+    shapes = net.shapes()
+    out = []
+    for i, s in enumerate(net.specs):
+        if isinstance(s, ConvSpec) and s.stride == 1 and i and shapes[i - 1][2] % 64 == 0:
+            shape = (*shapes[i - 1], s.filters, s.size, s.pad)
+            if shape not in out:
+                out.append(shape)
+    return out
 
 
 def v2_layers():
@@ -180,6 +233,7 @@ class Totals:
 
     def __init__(self):
         self.ms = self.eager_ms = self.plain_ms = self.bound_ms = self.bytes_bound_ms = 0.0
+        self.earlier_ms = 0.0  # K1: the same convs with every one on mma.sync
         self.library_ms: float | None = 0.0
 
     def add(self, ms, eager_ms, plain_ms, bound, library_ms):
@@ -214,10 +268,14 @@ def time_k1_layers(cuda_qconv, qconv, rng, card):
         b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
         wp = cuda_qconv.pack_weights(wt_t)
 
-        def kernel():
+        def call(design=None):
+            kw = {"_design": design} if design else {}
             cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=act,
                                              out_zp_static=0, fuse_pool=fused, out_i8=True,
-                                             w_packed=wp)
+                                             w_packed=wp, **kw)
+
+        def kernel():
+            call()
 
         def plain():
             if fused:
@@ -226,10 +284,9 @@ def time_k1_layers(cuda_qconv, qconv, rng, card):
                 qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, pad=pad, act=act,
                                        symmetric=True, out_i8=True)
 
-        # kernel and its eager form in turns: graph, eager, eager, graph
-        g1, e1, e2, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), cuda_time_ms(kernel, 20), \
-            graph_time_ms(kernel)
-        k_ms, e_ms = (g1 + g2) / 2, (e1 + e2) / 2
+        # the designs in turns (graph), then the eager form
+        ms = time_designs(cuda_qconv, ci, k, co, call)
+        k_ms, e_ms = ms[None], cuda_time_ms(kernel, 20)
         p_ms = cuda_time_ms(plain, 5, warmup=1)
         lib_ms = lib_eager = None
         if k == 1 and int_mm_ok(16 * h * w, ci, co):
@@ -240,13 +297,16 @@ def time_k1_layers(cuda_qconv, qconv, rng, card):
         mac = 16 * h * w * co * k * k * ci
         bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * oh * ow * co, 2 * mac)
         tot.add(k_ms, e_ms, p_ms, bound, lib_ms)
+        tot.earlier_ms += ms.get("mma.sync", k_ms)
         lib = f"{lib_ms:.4f} ms (eager {lib_eager:.4f})" if lib_ms is not None else "none"
         log(f"    layer {i:2d} {h}x{w}x{ci}->{co} k{k}{' +pool' if fused else ''}: kernel "
-            f"{k_ms:.4f} ms ({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound), "
+            f"{k_ms:.4f} ms ({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound)"
+            f"{design_note(cuda_qconv, ci, k, co, ms, bound[0])}, "
             f"eager {e_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
             f"_int_mm {lib} [{card}]")
-    log(f"  all 13 convs at batch 16: kernel {tot.ms:.4f} ms (graph), eager {tot.eager_ms:.4f} ms, "
-        f"plain {tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
+    log(f"  all 13 convs at batch 16: kernel {tot.ms:.4f} ms (graph; every conv on mma.sync "
+        f"{tot.earlier_ms:.4f} ms), eager {tot.eager_ms:.4f} ms, plain {tot.plain_ms:.4f} ms, bound "
+        f"{tot.bound_ms:.4f} ms [{card}]")
     return tot
 
 
@@ -262,26 +322,29 @@ def time_k1_stride2(cuda_qconv, qconv, rng, card):
         b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
         wp = cuda_qconv.pack_weights(wt_t)
 
-        def kernel():
+        def call(design=None):
+            kw = {"_design": design} if design else {}
             cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, stride=2, pad=pad, act=ACT_LEAKY,
-                                             out_zp_static=0, out_i8=True, w_packed=wp)
+                                             out_zp_static=0, out_i8=True, w_packed=wp, **kw)
 
         def plain():
             qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, stride=2, pad=pad, act=ACT_LEAKY,
                                    symmetric=True, out_i8=True)
 
-        g1, e1, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), graph_time_ms(kernel)
-        k_ms = (g1 + g2) / 2
+        ms = time_designs(cuda_qconv, ci, k, co, call)
+        k_ms, e1 = ms[None], cuda_time_ms(call, 20)
         p_ms = cuda_time_ms(plain, 5, warmup=1)
         oh, ow = (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1
         mac = 16 * oh * ow * co * k * k * ci
         bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * oh * ow * co, 2 * mac)
         tot.add(k_ms, e1, p_ms, bound, None)
+        tot.earlier_ms += ms.get("mma.sync", k_ms)
         log(f"    layer {i:2d} {h}x{w}x{ci}->{oh}x{ow}x{co} k{k}/s2: kernel {k_ms:.4f} ms "
-            f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound), eager {e1:.4f} ms, "
+            f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound)"
+            f"{design_note(cuda_qconv, ci, k, co, ms, bound[0])}, eager {e1:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), library none [{card}]")
-    log(f"  the five stride-2 convs at batch 16: kernel {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms, "
-        f"bound {tot.bound_ms:.4f} ms [{card}]")
+    log(f"  the five stride-2 convs at batch 16: kernel {tot.ms:.4f} ms (every conv on mma.sync "
+        f"{tot.earlier_ms:.4f} ms), plain {tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
     return tot
 
 
@@ -326,16 +389,17 @@ def time_k1_v2(cuda_qconv, qconv, rng, card):
         b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
         wp = cuda_qconv.pack_weights(wt_t)
 
-        def kernel():
+        def call(design=None):
+            kw = {"_design": design} if design else {}
             cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=act, out_zp_static=0,
-                                             out_i8=True, w_packed=wp)
+                                             out_i8=True, w_packed=wp, **kw)
 
         def plain():
             qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, pad=pad, act=act, symmetric=True,
                                    out_i8=True)
 
-        g1, e1, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), graph_time_ms(kernel)
-        k_ms = (g1 + g2) / 2
+        ms = time_designs(cuda_qconv, ci, k, co, call)
+        k_ms, e1 = ms[None], cuda_time_ms(call, 20)
         p_ms = cuda_time_ms(plain, 3, warmup=1)
         lib_ms = None
         if k == 1 and int_mm_ok(16 * h * w, ci, co):
@@ -344,13 +408,48 @@ def time_k1_v2(cuda_qconv, qconv, rng, card):
         mac = 16 * h * w * co * k * k * ci
         bound = bound_ms(16 * h * w * ci + k * k * ci * co + 8 * co + 16 * h * w * co, 2 * mac)
         tot.add(k_ms, e1, p_ms, bound, lib_ms)
+        tot.earlier_ms += ms.get("mma.sync", k_ms)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         log(f"    {name:14s} {h}x{w}x{ci}->{co} k{k} (GEMM K {k * k * ci}): kernel {k_ms:.4f} ms "
-            f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound), eager {e1:.4f} ms, "
+            f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound)"
+            f"{design_note(cuda_qconv, ci, k, co, ms, bound[0])}, eager {e1:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), _int_mm {lib} [{card}]")
-    log(f"  the yolov2 family's new shapes at batch 16: kernel {tot.ms:.4f} ms, plain "
-        f"{tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
+    log(f"  the yolov2 family's new shapes at batch 16: kernel {tot.ms:.4f} ms (every conv on mma.sync "
+        f"{tot.earlier_ms:.4f} ms), plain {tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
     return tot
+
+
+def time_k1_v3(cuda_qconv, rng, card, batches=(16, 64)):
+    """K1 on ``v3_layers`` (yolov3's stride-1 convs from Ci 64) at each batch,
+    symmetric and leaky, in both designs (graph-timed, in turns), beside the
+    ops bound.  The plain version is not timed here (float64 convs at batch
+    64)."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY
+
+    log(f"  K1 on yolov3's stride-1 convs from Ci 64 [{card}]: kernel graph-timed, both designs in turns:")
+    for n in batches:
+        tot = Totals()
+        for (h, w, ci, co, k, pad) in v3_layers():
+            x, wt, bias, m = random_layer(rng, n, h, w, ci, co, k)
+            xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+            b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+            wp = cuda_qconv.pack_weights(wt_t)
+
+            def call(design=None):
+                kw = {"_design": design} if design else {}
+                cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=ACT_LEAKY,
+                                                 out_zp_static=0, out_i8=True, w_packed=wp, **kw)
+
+            ms = time_designs(cuda_qconv, ci, k, co, call)
+            mac = n * h * w * co * k * k * ci
+            bound = bound_ms(n * h * w * ci + k * k * ci * co + 8 * co + n * h * w * co, 2 * mac)
+            tot.add(ms[None], 0.0, 0.0, bound, None)
+            tot.earlier_ms += ms.get("mma.sync", ms[None])
+            log(f"    batch {n} {h}x{w}x{ci}->{co} k{k}: kernel {ms[None]:.4f} ms ({mac / 1e9 / ms[None]:.2f} "
+                f"TMAC/s, {bound[0] / ms[None]:.1%} of bound){design_note(cuda_qconv, ci, k, co, ms, bound[0])}, "
+                f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+        log(f"  yolov3's {len(v3_layers())} stride-1 shapes from Ci 64 at batch {n}: kernel {tot.ms:.4f} ms "
+            f"(every conv on mma.sync {tot.earlier_ms:.4f} ms), bound {tot.bound_ms:.4f} ms [{card}]")
 
 
 def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
@@ -461,6 +560,7 @@ def time_all(engines, probe_results, card, rng):
 
     k1 = time_k1_layers(cuda_qconv, qconv, rng, card)
     time_k1_stride2(cuda_qconv, qconv, rng, card)
+    time_k1_v3(cuda_qconv, np.random.default_rng(3), card)
     k2 = time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card)
     sc = time_shortcut(cuda_shortcut, shortcut, rng, card)
     time_engines(engines, rng, card)

@@ -9,7 +9,7 @@ For the flagship, ``use_s2d`` and C-parity configurations (yolov3-tiny, 416,
 the wall time per forward, the summed device kernel time, the device busy
 share (kernel time over wall time of the profiled window) and the kernels
 that take the most device time, and the share of each hand-written kernel
-(K1 sums its tile instantiations).  Prints one JSON line per configuration
+(K1 sums its tile instantiations, and is split by design).  Prints one JSON line per configuration
 and batch.
 """
 
@@ -29,9 +29,11 @@ from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_
 from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity
 
 ITERS = 5
-# the hand-written kernels by the names of their __global__ functions
-KERNELS = {"K1 qconv": ("qconv_mma_kernel", "qconv_i16_kernel"), "K2 s2d_qconv": ("s2d_mma_kernel",),
-           "shortcut": ("shortcut_kernel",)}
+# the hand-written kernels by the names of their __global__ functions; K1
+# whole, then by design
+KERNELS = {"K1 qconv": ("qconv_wgmma_kernel", "qconv_mma_kernel", "qconv_i16_kernel"),
+           "K1 wgmma": ("qconv_wgmma_kernel",), "K1 mma.sync": ("qconv_mma_kernel",),
+           "K2 s2d_qconv": ("s2d_mma_kernel",), "shortcut": ("shortcut_kernel",)}
 
 
 def configurations(v3: bool = False):
