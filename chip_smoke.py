@@ -9,11 +9,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the four kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
      gemm_probe.cu, shortcut.cu), one nvcc each, all started together; print
      each kernel's ptxas registers, spills and static shared memory, and its
-     IMMA (int8 mma.sync), IGMMA (int8 wgmma) and IDP (__dp4a) instructions
-     from cuobjdump's SASS; K1's mma.sync instantiations, every K2
-     instantiation and both probe kernels must hold IMMA, K1's wgmma
-     instantiations IGMMA and no IMMA, and K1's symmetric ones (both
-     designs), K2's and orientation_b no IDP;
+     IMMA (int8 mma.sync), IGMMA (int8 wgmma), UTMALDG (a TMA load) and IDP
+     (__dp4a) instructions from cuobjdump's SASS; K1's mma.sync
+     instantiations, every K2 instantiation and both probe kernels must hold
+     IMMA, K1's wgmma instantiations IGMMA and no IMMA, its halo
+     instantiations IMMA and UTMALDG, and K1's symmetric ones (every
+     design), K2's and orientation_b no IDP;
   3. K1 (qconv) vs its plain PyTorch version, bit for bit: every flagship
      conv shape at 416x416, at batch 2 plain and with each reference-engine
      option (asymmetric w_zp, per-image zp and (N,Co) bias/m, exact_leaky,
@@ -27,10 +28,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      2: yolov3's five stride-2 convs at batch 2 and 16 and with each option,
      odd maps (13 -> 7, 9x11), Cin 3 and 6, every block tile; then
      yolov3's stride-1 shapes from Ci 64 (208x208 to 13x13) at batch 2
-     (plain, asymmetric, the parity options) and 16.  Every case that K1's
-     wgmma design can run (Ci % 64 == 0, k 1 or 3) runs in its routed
-     design and again forced onto the other, each launch counted under the
-     design that ran;
+     (plain, asymmetric, the parity options) and 16.  Then the halo
+     design's edges (Ci 3, 16, 32, 48 at stride 1, 2 and pooled, batch 1
+     and 3, odd maps, Co 16, 32, 64) with each option and uint8 input.  Every
+     case that K1's wgmma design (Ci % 64 == 0, k 1 or 3) or its halo
+     design (3x3 from Ci 3, 16, 32, 48 to Co 16, 32, 64) can run runs in its
+     routed design and again forced onto the other, each launch counted
+     under the design that ran;
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
      batch 2, every activation, per-image zp/bias/m, exact_leaky, and at
      batch 16 (the timed shapes) plain and with the per-image options;
@@ -54,8 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      "v3-perturbed" (ranges off the synthetic rationals, asymmetric
      weights, dynamic_input, exact_leaky), 75 K1 + 23 shortcut launches per
      forward; each engine's predict is a main path with counted launches,
-     K1's also by design: 10 wgmma + 3 mma.sync a flagship forward (s2d 10
-     + 0, int16 13 on its own kernel), 67 + 8 a yolov3 forward;
+     K1's also by design: 10 wgmma + 3 halo a flagship forward (s2d 10 + 0,
+     int16 13 on its own kernel), 67 wgmma + 3 halo + 5 mma.sync a yolov3
+     forward;
   7. flip TTA and at_size(320) agree between GPU and CPU for yolov3-tiny and
      yolov3, and f1_rows over GPU and CPU predictions gives equal counts;
   8. Servers with the (1, 4, 16) bucket ladder answer seeded requests of
@@ -65,7 +70,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (yolo_quantization_tpu_torch/tools/kernel_timings.py, which also runs
      alone): each kernel graph-timed (its device time) beside its eager
      time, its bound, the plain version and torch._int_mm; K1's wgmma convs
-     in both designs, in turns; K1 on yolov3's stride-2 convs and on its
+     in both designs, in turns; the halo design's convs (the flagship's
+     layers 0, 2, 4 at 16, yolov3's 0, 1, 3 at 16 and 64, yolov2's 0, 2 at
+     16) in both designs beside their bounds; K1 on yolov3's stride-2 convs and on its
      stride-1 shapes from Ci 64 at batch 16 and 64; the shortcut kernel per
      yolov3 stage; the engines' device forwards;
  10. the QAT forward and backward, GPU against CPU (tools/qat_check.py):
@@ -87,8 +94,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the integer Engine (K1, launches counted) against the fake-quant
      simulation and the float engine: float F1 >= 60, integer >= QAT-sim -
      0.5, integer >= float - 2.5;
- 13. (run after phase 8) yolov2-tiny (9 K1 launches a forward) and yolov2
-     (23, the reorg passthrough as a float route into conv 29), 416, 20
+ 13. (run after phase 8) yolov2-tiny (9 K1 launches a forward: 6 wgmma + 3
+     halo) and yolov2 (23: 20 + 2 halo + 1 mma.sync; the reorg passthrough
+     as a float route into conv 29), 416, 20
      classes, float32 and uint8 batches of 4: every layer's codes equal to
      the CPU engine's (16 and 32 layers; the region layer's floats within
      rtol 1e-5, atol 1e-6), predict, flip TTA and at_size(320) agree; the
@@ -250,8 +258,9 @@ def ptxas_report(log_text: str) -> dict[str, dict]:
 
 
 def sass_counts(lib_path) -> dict[str, dict]:
-    """IMMA (int8 mma.sync), IGMMA (int8 wgmma) and IDP (__dp4a)
-    instructions per kernel in a built library, from cuobjdump --dump-sass."""
+    """IMMA (int8 mma.sync), IGMMA (int8 wgmma), UTMALDG (a TMA tile load)
+    and IDP (__dp4a) instructions per kernel in a built library, from
+    cuobjdump --dump-sass."""
     from yolo_quantization_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -261,10 +270,11 @@ def sass_counts(lib_path) -> dict[str, dict]:
     for line in sass.splitlines():
         if m := re.match(r"\s*Function : (\S+)", line):
             fn = m.group(1)
-            out[fn] = {"IMMA": 0, "IGMMA": 0, "IDP": 0}
+            out[fn] = {"IMMA": 0, "IGMMA": 0, "UTMALDG": 0, "IDP": 0}
         elif fn:
             out[fn]["IMMA"] += bool(re.search(r"\bIMMA\b", line))
             out[fn]["IGMMA"] += bool(re.search(r"\bIGMMA\b", line))
+            out[fn]["UTMALDG"] += bool(re.search(r"\bUTMALDG\b", line))
             out[fn]["IDP"] += bool(re.search(r"\bIDP\b", line))
     return out
 
@@ -282,15 +292,16 @@ def demangle(names) -> dict[str, str]:
     return dict(zip(names, got)) if len(got) == len(names) else {n: n for n in names}
 
 
-def phase_kernel_report(libs) -> None:
+def phase_kernel_report(libs) -> tuple[list, list]:
     """Print ptxas and SASS facts per kernel; K1's mma.sync instantiations,
     K2's and the probe kernels must run on IMMA, K1's wgmma ones on IGMMA
-    with no IMMA, and K1's symmetric int8 ones (both designs), K2's and
-    orientation_b must hold no IDP (no product on __dp4a).  Returns the
-    wgmma instantiations' names."""
+    with no IMMA, its halo ones on IMMA fed by TMA (UTMALDG), and K1's
+    symmetric int8 ones (every design), K2's and orientation_b must hold no
+    IDP (no product on __dp4a).  Returns the wgmma and the halo
+    instantiations' names."""
     from yolo_quantization_tpu_torch.ops import _build
 
-    wgmma = []
+    wgmma, halo = [], []
     for name in libs:
         ptx = ptxas_report(_build.build_log.get(name, ""))
         sass = sass_counts(_build.library_path(name))
@@ -300,7 +311,8 @@ def phase_kernel_report(libs) -> None:
             regs = info.get("registers", "?")
             log(f"    {name}: {readable[fn]}: {regs} registers, spill stores/loads "
                 f"{info.get('spill', '?')} B, static smem {info.get('smem', '?')} B, "
-                f"IMMA {counts['IMMA']}, IGMMA {counts['IGMMA']}, IDP {counts['IDP']}")
+                f"IMMA {counts['IMMA']}, IGMMA {counts['IGMMA']}, UTMALDG {counts['UTMALDG']}, "
+                f"IDP {counts['IDP']}")
             if (name in ("s2d_qconv", "gemm_probe") or "qconv_mma" in fn) and counts["IMMA"] == 0:
                 raise AssertionError(f"{readable[fn]}: no IMMA instruction")
             if "qconv_wgmma" in fn:
@@ -308,16 +320,21 @@ def phase_kernel_report(libs) -> None:
                 if counts["IGMMA"] == 0 or counts["IMMA"]:
                     raise AssertionError(f"{readable[fn]}: IGMMA {counts['IGMMA']}, IMMA {counts['IMMA']}; "
                                          "the wgmma design must run on wgmma alone")
+            if "qconv_halo" in fn:
+                halo.append(readable[fn])
+                if counts["IMMA"] == 0 or counts["UTMALDG"] == 0:
+                    raise AssertionError(f"{readable[fn]}: IMMA {counts['IMMA']}, UTMALDG {counts['UTMALDG']}; "
+                                         "the halo design multiplies on mma.sync a halo fetched by TMA")
             if (name == "s2d_qconv" or "orientation_b" in fn) and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a product runs on __dp4a")
-            # the ASYM flag: the fifth template argument of either design's kernel
-            args = re.search(r"qconv_(mma|wgmma)_kernelI((?:L[a-z]\d+E)+)E", fn)
+            # the ASYM flag: the fifth template argument of each design's kernel
+            args = re.search(r"qconv_(mma|wgmma|halo)_kernelI((?:L[a-z]\d+E)+)E", fn)
             asym = args and re.findall(r"L[a-z](\d+)E", args.group(2))[4] == "1"
             if args and not asym and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a symmetric int8 conv runs __dp4a")
-    if not wgmma:
-        raise AssertionError("no wgmma instantiation of K1 in the build")
-    return wgmma
+    if not wgmma or not halo:
+        raise AssertionError(f"K1's build holds {len(wgmma)} wgmma and {len(halo)} halo instantiations")
+    return wgmma, halo
 
 
 class Errors:
@@ -463,6 +480,33 @@ def stride2_cases():
     return [case + (2,) for case in cases]
 
 
+# The halo design's edges (n, h, w, ci, co, stride, fuse_pool), as
+# tests/test_torch_qconv_halo.py::HALO_CASES: the models' stem shapes cut in
+# height, batch 1 and 3, odd maps, stride 2, every Ci (3, 16, 32, 48) and Co
+# (16, 32, 64) it takes, tiles past the map's edge in both directions
+HALO_EDGES = (
+    (1, 20, 416, 3, 16, 1, True), (3, 14, 64, 3, 32, 1, False), (1, 18, 96, 3, 32, 1, True),
+    (3, 9, 48, 3, 16, 2, False), (1, 17, 64, 3, 64, 1, False), (3, 22, 208, 16, 32, 1, True),
+    (1, 26, 104, 32, 64, 1, True), (3, 13, 45, 32, 64, 2, False), (1, 21, 37, 32, 64, 1, False),
+    (3, 7, 33, 16, 16, 2, False), (2, 6, 34, 16, 64, 1, True), (1, 9, 70, 48, 16, 1, False),
+    (3, 10, 66, 48, 32, 1, True), (2, 11, 40, 32, 16, 2, False), (2, 19, 64, 3, 32, 2, False),
+)
+
+
+def halo_cases():
+    """The halo design's edges in conv_cases' form, each plain, asymmetric,
+    with per-image zero points and (N, Co) bias/m, exact_leaky, uint8 input
+    and the parity engine's options."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY
+
+    cases = []
+    for j, (n, h, w, ci, co, stride, pool) in enumerate(HALO_EDGES):
+        for variant in ("", "asym", "dyn", "exact", "uint8", "parity"):
+            cases.append((f"halo{j}_{variant or 'sym'}", n, h, w, ci, co, 3, 1, ACT_LEAKY, variant != "uint8",
+                          pool, variant, stride))
+    return cases
+
+
 def phase_k1(cuda_qconv, qconv, rng, errors, cases=None):
     from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
@@ -500,10 +544,11 @@ def phase_k1(cuda_qconv, qconv, rng, errors, cases=None):
                                          pad=pad, act=act, symmetric=w_zp is None,
                                          out_i8=out_i8, **opts)
         # the routed design, then the other one forced on the same inputs where
-        # the wgmma design can run the conv
-        design = cuda_qconv.design(ci, k, co, opts["carrier"])
-        two = cuda_qconv.wgmma_capable(ci, k, opts["carrier"])
-        for forced in (None, "mma.sync" if design == "wgmma" else "wgmma") if two else (None,):
+        # the wgmma or the halo design can run the conv
+        design = cuda_qconv.design(ci, k, co, opts["carrier"], pad=pad, w=w)
+        choice = cuda_qconv.forcible(ci, k, co, opts["carrier"], pad=pad, w=w)
+        other = (choice[1] if design == "mma.sync" else "mma.sync") if choice else None
+        for forced in (None, other) if other else (None,):
             reset_counts(cuda_qconv)
             got = cuda_qconv.quantized_conv2d_cuda(
                 xt, wt_t, b_t, m_t, zp_t, stride=stride, pad=pad, act=act, out_zp_static=out_zp,
@@ -515,8 +560,7 @@ def phase_k1(cuda_qconv, qconv, rng, errors, cases=None):
             errors.check("qconv", f"{name} ({ran})", got, ref)
             counts[ran] = counts.get(ran, 0) + 1
         log(f"  {name:24s} x{(n, h, w, ci)} w{(k, k, ci, co)} s{stride} act={act} out_i8={out_i8} "
-            f"pool={pool} {variant or 'plain'}: equal ({design}"
-            f"{' and ' + ('mma.sync' if design == 'wgmma' else 'wgmma') + ' forced' if two else ''})")
+            f"pool={pool} {variant or 'plain'}: equal ({design}{' and ' + other + ' forced' if other else ''})")
     return sum(c[-1] == 1 for c in cases), sum(c[-1] == 2 for c in cases), counts
 
 
@@ -650,25 +694,25 @@ def phase_shortcut(cuda_shortcut, shortcut, rng, errors):
 
 def engine_configs():
     """name -> (program, options, launches per forward (K1, K2, shortcut),
-    K1's launches by design (wgmma, mma.sync, int16)): yolov3-tiny's
+    K1's launches by design (wgmma, halo, mma.sync, int16)): yolov3-tiny's
     configurations, then yolov3's (``v3``, ``v3-perturbed``) as
     ``tools/profile_engine.py`` builds them.  wgmma takes the convs from Ci
-    64 (the flagship's layers 6-22, 67 of yolov3's 75), mma.sync the stem,
-    the narrow early layers and the 1x1 convs sent back (yolov3's 2, 6, 9,
-    93 and 105; PERF.md)."""
+    64 (the flagship's layers 6-22, 67 of yolov3's 75), halo the narrow 3x3
+    stem convs (the flagship's 0, 2, 4; yolov3's 0, 1, 3), mma.sync the 1x1
+    convs sent back from wgmma (yolov3's 2, 6, 9, 93 and 105; PERF.md)."""
     from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
     from yolo_quantization_tpu_torch.tools.profile_engine import configurations
 
     flagship = flagship_program(classes=5, size=416, seed=0)
     return {
-        "flagship": (flagship, {}, (13, 0, 0), (10, 3, 0)),
-        "s2d": (flagship, dict(use_s2d=True), (10, 3, 0), (10, 0, 0)),
+        "flagship": (flagship, {}, (13, 0, 0), (10, 3, 0, 0)),
+        "s2d": (flagship, dict(use_s2d=True), (10, 3, 0), (10, 0, 0, 0)),
         "parity": (parity_program(classes=5, size=416, seed=0),
-                   dict(dynamic_input=True, exact_leaky=True), (13, 0, 0), (10, 3, 0)),
-        "int16": (flagship, dict(carrier="int16"), (13, 0, 0), (0, 0, 13)),
+                   dict(dynamic_input=True, exact_leaky=True), (13, 0, 0), (10, 3, 0, 0)),
+        "int16": (flagship, dict(carrier="int16"), (13, 0, 0), (0, 0, 0, 13)),
         # each fused conv+pool as K1 then the integer pool: every layer its own output
-        "flagship-unfused": (flagship, dict(fuse_pool=False), (13, 0, 0), (10, 3, 0)),
-        **{name: (program, option, (75, 0, 23), (67, 8, 0))
+        "flagship-unfused": (flagship, dict(fuse_pool=False), (13, 0, 0), (10, 3, 0, 0)),
+        **{name: (program, option, (75, 0, 23), (67, 3, 5, 0))
            for name, (program, option) in configurations(v3=True).items()},
     }
 
@@ -681,10 +725,11 @@ def reset_counts(*wrappers):
             w.launches = 0
 
 
-def design_split(cuda_qconv) -> tuple[int, int, int]:
-    """K1's launches since the last reset by design: (wgmma, mma.sync, int16)."""
+def design_split(cuda_qconv) -> tuple[int, int, int, int]:
+    """K1's launches since the last reset by design: (wgmma, halo, mma.sync,
+    int16)."""
     d = cuda_qconv.design_launches
-    return d["wgmma"], d["mma.sync"], d["int16"]
+    return d["wgmma"], d["halo"], d["mma.sync"], d["int16"]
 
 
 def phase_engines(Engine, counters, rng):
@@ -709,7 +754,7 @@ def phase_engines(Engine, counters, rng):
                 raise AssertionError(f"{cname}: (K1, K2, shortcut) launches per forward {got}, "
                                      f"expected {expected}")
             if design_split(counters[0]) != split:
-                raise AssertionError(f"{cname}: K1 launches by design (wgmma, mma.sync, int16) "
+                raise AssertionError(f"{cname}: K1 launches by design (wgmma, halo, mma.sync, int16) "
                                      f"{design_split(counters[0])}, expected {split}")
             heads_c, outs_c = eng_cpu.raw_heads(batch, return_outputs=True)
             for i, (g, c) in enumerate(zip(outs_g, outs_c)):
@@ -726,7 +771,7 @@ def phase_engines(Engine, counters, rng):
                         raise AssertionError(f"int16 carrier: layer {i} differs from the int8 engine")
             log(f"  {cname} {name} batch of {len(batch)}: all {len(outs_g)} layer outputs equal to the CPU "
                 f"engine{' and to the int8 engine' if cname == 'int16' else ''}; "
-                f"{expected[0]} K1 ({split[0]} wgmma, {split[1]} mma.sync, {split[2]} int16) + "
+                f"{expected[0]} K1 ({split[0]} wgmma, {split[1]} halo, {split[2]} mma.sync, {split[3]} int16) + "
                 f"{expected[1]} K2 + {expected[2]} shortcut launches")
         # the engine's predict is this configuration's main path
         reset_counts(*counters)
@@ -739,8 +784,8 @@ def phase_engines(Engine, counters, rng):
                 and (obj >= 0).all() and (obj <= 1).all()):
             raise AssertionError(f"{cname} predict: non-finite boxes or objectness outside [0,1]")
         log(f"  {cname} predict: boxes {boxes.shape} finite, objectness in "
-            f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {expected[0]} (wgmma {split[0]}, mma.sync "
-            f"{split[1]}, int16 {split[2]}), K2 {expected[1]}, shortcut {expected[2]}")
+            f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {expected[0]} (wgmma {split[0]}, halo {split[1]}, "
+            f"mma.sync {split[2]}, int16 {split[3]}), K2 {expected[1]}, shortcut {expected[2]}")
     return engines, main_launches
 
 
@@ -1219,11 +1264,12 @@ random=1
 
 
 def v2_engine_configs(size: int = 416):
-    """name -> (program, launches per forward (K1, K2, shortcut))."""
+    """name -> (program, launches per forward (K1, K2, shortcut), K1's
+    launches by design (wgmma, halo, mma.sync, int16))."""
     from yolo_quantization_tpu_torch.models.presets import v2_program, v2_tiny_program
 
-    return {"v2-tiny": (v2_tiny_program(classes=20, size=size, seed=0), (9, 0, 0)),
-            "v2": (v2_program(classes=20, size=size, seed=0), (23, 0, 0))}
+    return {"v2-tiny": (v2_tiny_program(classes=20, size=size, seed=0), (9, 0, 0), (6, 3, 0, 0)),
+            "v2": (v2_program(classes=20, size=size, seed=0), (23, 0, 0), (20, 2, 1, 0))}
 
 
 def compare_layer_outputs(what, net, outs_g, outs_c) -> None:
@@ -1246,7 +1292,7 @@ def phase_v2_engines(Engine, counters, rng, size: int = 416):
     x = rng.uniform(0, 1, (4, size, size, 3)).astype(np.float32)
     x_u8 = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
     engines = {}
-    for cname, (program, expected) in v2_engine_configs(size).items():
+    for cname, (program, expected, split) in v2_engine_configs(size).items():
         t0 = time.perf_counter()
         gpu, cpu = Engine(program, device="cuda"), Engine(program, device="cpu")
         engines[cname] = gpu
@@ -1256,12 +1302,16 @@ def phase_v2_engines(Engine, counters, rng, size: int = 416):
             got = tuple(c.launches for c in counters)
             if got != expected:
                 raise AssertionError(f"{cname}: (K1, K2, shortcut) launches per forward {got}, expected {expected}")
+            if size == 416 and design_split(counters[0]) != split:
+                raise AssertionError(f"{cname}: K1 launches by design (wgmma, halo, mma.sync, int16) "
+                                     f"{design_split(counters[0])}, expected {split}")
             heads_c, outs_c = cpu.raw_heads(batch, return_outputs=True)
             compare_layer_outputs(f"{cname} {name}", program.net, outs_g, outs_c)
             for g, c in zip(heads_g, heads_c):
                 np.testing.assert_allclose(g, c, **DECODE_TOL)
             log(f"  {cname} {name} batch of 4: all {len(outs_g)} layer outputs equal to the CPU engine's "
-                f"(the region layer within rtol 1e-5, atol 1e-6); {expected[0]} K1 launches")
+                f"(the region layer within rtol 1e-5, atol 1e-6); {expected[0]} K1 launches ({split[0]} wgmma, "
+                f"{split[1]} halo, {split[2]} mma.sync)")
         reset_counts(*counters)
         dets_g = gpu.predict(x)
         if tuple(c.launches for c in counters) != expected:
@@ -1985,8 +2035,9 @@ def main(argv: list[str]) -> int:
         for line in _build.build_log.get(name, "").splitlines():
             if "error" in line:
                 log(f"    nvcc: {line.strip()}")
-    wgmma = phase_kernel_report(libs)
-    log(f"  {len(wgmma)} wgmma instantiations of K1, each with IGMMA and no IMMA")
+    wgmma, halo = phase_kernel_report(libs)
+    log(f"  {len(wgmma)} wgmma instantiations of K1, each with IGMMA and no IMMA; {len(halo)} halo "
+        "instantiations, each with IMMA and UTMALDG")
 
     rng = np.random.default_rng(0)
     errors = Errors()
@@ -2000,6 +2051,8 @@ def main(argv: list[str]) -> int:
     log(f"  {n3} cases on the yolov2 family's shapes equal; runs by design {by_design}")
     n4, _, by_design = phase_k1(cuda_qconv, qconv, np.random.default_rng(11), errors, v3_conv_cases())
     log(f"  {n4} cases on yolov3's stride-1 shapes from Ci 64 equal; runs by design {by_design}")
+    n5, n6, by_design = phase_k1(cuda_qconv, qconv, np.random.default_rng(13), errors, halo_cases())
+    log(f"  {n5 + n6} cases on the halo design's edges equal; runs by design {by_design}")
     log("phase 4: K2 (s2d_qconv) vs plain version (bit for bit)")
     log(f"  {phase_k2(cuda_s2d, qconv, rng, errors)} cases equal")
     log("phase 5: K3 (orientation probe) at the script's sizes vs plain version (bit for bit)")

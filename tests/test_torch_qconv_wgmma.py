@@ -193,57 +193,62 @@ def test_swizzled_chunks_cover_each_row(bk):
 
 
 def conv_inputs(net):
-    """(layer, ci, k, stride) of every conv of a network, Ci from the layer
-    that feeds it."""
+    """(layer, ci, k, stride, pad, input width) of every conv of a network,
+    Ci and the width from the layer that feeds it."""
     shapes = net.shapes()
     out = []
     for i, s in enumerate(net.specs):
         if isinstance(s, ConvSpec):
-            ci = shapes[i - 1][2] if i else 3
-            out.append((i, ci, s.size, s.stride))
+            _, w, ci = shapes[i - 1] if i else (net.height, net.width, 3)
+            out.append((i, ci, s.size, s.stride, s.pad, w))
     return out
 
 
-# per model: wgmma convs, and the mma.sync ones: the narrow early layers
-# (Ci % 64 != 0), and the 1x1 convs sent back after the H100 ran them
-# slower on wgmma (Ci <= 128; yolov3's 255-channel heads with Ci <= 512)
+# per model: wgmma convs, the halo design's (the narrow 3x3 stem convs), and
+# the mma.sync ones: the 1x1 convs sent back after the H100 ran them slower
+# on wgmma (Ci <= 128; yolov3's 255-channel heads with Ci <= 512)
 ROUTES = {
-    "yolov3_tiny": (10, (0, 2, 4)),
-    "yolov3": (67, (0, 1, 2, 3, 6, 9, 93, 105)),
-    "yolov2_tiny": (6, (0, 2, 4)),
-    "yolov2": (20, (0, 2, 5)),
+    "yolov3_tiny": (10, (0, 2, 4), ()),
+    "yolov3": (67, (0, 1, 3), (2, 6, 9, 93, 105)),
+    "yolov2_tiny": (6, (0, 2, 4), ()),
+    "yolov2": (20, (0, 2), (5,)),
 }
 
 
 @pytest.mark.parametrize("model", sorted(ROUTES))
 def test_route_rule_by_model(model):
     """``design``, the wrapper's mirror of the kernel's route rule, sends the
-    models' convs where the design says: the int8 convs with Ci a multiple
-    of 64 to wgmma (the flagship's layers 6-22, yolov3's stride-2 convs from
-    Ci 64), but for the 1x1 convs sent back to mma.sync; the narrow early
-    layers to mma.sync; the int16 carrier to its own kernel."""
-    wgmma, mma = ROUTES[model]
+    models' convs where the three designs say: the int8 convs with Ci a
+    multiple of 64 to wgmma (the flagship's layers 6-22, yolov3's stride-2
+    convs from Ci 64), but for the 1x1 convs sent back to mma.sync; the
+    narrow 3x3 stem convs (Ci 3, 16, 32) to the halo design; the int16
+    carrier to its own kernel."""
+    wgmma, halo, mma = ROUTES[model]
     net = getattr(zoo, model)(**({"classes": 5} if model == "yolov3_tiny" else {}), width=416, height=416)
     shapes = net.shapes()
     convs = conv_inputs(net)
-    routes = {i: cuda_qconv.design(ci, k, net.specs[i].filters) for i, ci, k, _ in convs}
+    routes = {i: cuda_qconv.design(ci, k, net.specs[i].filters, pad=pad, w=w) for i, ci, k, _, pad, w in convs}
     assert sorted(i for i, r in routes.items() if r == "mma.sync") == list(mma)
+    assert sorted(i for i, r in routes.items() if r == "halo") == list(halo)
     assert sum(r == "wgmma" for r in routes.values()) == wgmma
-    for i, ci, k, stride in convs:
+    for i, ci, k, stride, pad, w in convs:
         co = shapes[i][2]
         sent_back = k == 1 and (ci <= 128 or (co > 128 and co % 16 and ci <= 512))
-        assert routes[i] == ("wgmma" if ci % 64 == 0 and not sent_back else "mma.sync"), (i, ci, k, stride)
-        assert cuda_qconv.design(ci, k, co, "int16") == "int16"
+        narrow = k == 3 and ci in (3, 16, 32) and co <= 64
+        want = "halo" if narrow else "wgmma" if ci % 64 == 0 and not sent_back else "mma.sync"
+        assert routes[i] == want, (i, ci, k, stride)
+        assert cuda_qconv.design(ci, k, co, "int16", pad=pad, w=w) == "int16"
     if model == "yolov3_tiny":
         assert sorted(i for i, r in routes.items() if r == "wgmma") == [6, 8, 10, 12, 13, 14, 15, 18, 21, 22]
     if model == "yolov3":
-        assert [ci for i, ci, k, s in convs if s == 2] == [32, 64, 128, 256, 512]
-        assert [routes[i] for i, ci, k, s in convs if s == 2] == ["mma.sync"] + ["wgmma"] * 4
+        assert [ci for i, ci, k, s, _, _ in convs if s == 2] == [32, 64, 128, 256, 512]
+        assert [routes[i] for i, ci, k, s, _, _ in convs if s == 2] == ["halo"] + ["wgmma"] * 4
 
 
 def test_forced_design_is_checked(rng):
-    """``_design`` forces either design, only on a conv the wgmma design can
-    run; on the CPU the plain version runs whatever the design."""
+    """``_design`` forces either design, only on a conv the wgmma design (or
+    the halo design) can run; on the CPU the plain version runs whatever the
+    design."""
     x = torch.from_numpy(rng.integers(-128, 128, (1, 6, 6, 64), dtype=np.int8))
     w = torch.from_numpy(rng.integers(-128, 128, (3, 3, 64, 16), dtype=np.int8))
     b, m = torch.zeros(16, dtype=torch.int32), torch.full((16,), 1e-3)
@@ -254,8 +259,8 @@ def test_forced_design_is_checked(rng):
     assert cuda_qconv.launches == before
     with pytest.raises(ValueError, match="may be forced"):
         cuda_qconv.quantized_conv2d_cuda(x, w, b, m, 0, pad=1, _design="int16")
-    with pytest.raises(ValueError, match="cannot run"):
-        cuda_qconv.quantized_conv2d_cuda(x[..., :32].contiguous(), w[:, :, :32].contiguous(), b, m, 0,
+    with pytest.raises(ValueError, match="cannot run"):  # Ci 8: mma.sync's alone
+        cuda_qconv.quantized_conv2d_cuda(x[..., :8].contiguous(), w[:, :, :8].contiguous(), b, m, 0,
                                          pad=1, _design="mma.sync")
     with pytest.raises(ValueError, match="cannot run"):
         cuda_qconv.quantized_conv2d_cuda(x, w, b, m, 0, pad=1, carrier="int16", _design="wgmma")
@@ -332,9 +337,9 @@ def test_cuda_both_designs_match_plain(rng, n, h, w, ci, co, k, pad, stride, fus
     got = cuda_qconv.quantized_conv2d_cuda(*[cu(a) for a in args], cu(x_zp), w_zp=cu(w_zp), _design=forced,
                                            **call)
     torch.cuda.synchronize()
-    ran = forced or cuda_qconv.design(ci, k, co)
-    assert cuda_qconv.design_launches == {"wgmma": int(ran == "wgmma"), "mma.sync": int(ran == "mma.sync"),
-                                          "int16": 0}
+    ran = forced or cuda_qconv.design(ci, k, co, pad=pad, w=w)
+    assert cuda_qconv.design_launches == {"wgmma": int(ran == "wgmma"), "halo": 0,
+                                          "mma.sync": int(ran == "mma.sync"), "int16": 0}
     assert torch.equal(got.cpu(), ref)
 
 

@@ -7,9 +7,9 @@
 // (yolo_quantization_tpu/ops/qconv.py::requant_activate): (float) is a
 // round-to-nearest conversion of the wrapping int32 sum acc + bias, one
 // multiply by m[o], the leaky slope as a separate multiply, rintf (half to
-// even, never roundf), then the zero point and a clamp in float before the
-// narrowing cast.  The _rn intrinsics keep nvcc from contracting any
-// multiply and add into an FMA.
+// even, never roundf; rint_clamped), then the zero point and a clamp in
+// float before the narrowing cast.  The _rn intrinsics keep nvcc from
+// contracting any multiply and add into an FMA.
 
 #pragma once
 
@@ -34,8 +34,16 @@ struct Epilogue {
   int out_zp;       // uint8-domain output zero point
 };
 
+// 1.5 * 2^23 (bits 0x4B400000): adding it to a float of magnitude below
+// 2^22 rounds it to an integer k (half to even, the rounding mode) held as
+// 0x4B400000 + k in the sum's bits
+constexpr float kRoundMagic = 12582912.0f;
+constexpr int kRoundMagicBits = 0x4B400000;
+
+// The clamp in that representation: the zero point, and the bounds plus
+// kRoundMagic (exact: small integers)
 struct Clamp {
-  float zps, lo, hi;
+  float zps, lo_m, hi_m;
 };
 
 __device__ __forceinline__ Clamp clamp_of(const Epilogue& e) {
@@ -43,25 +51,37 @@ __device__ __forceinline__ Clamp clamp_of(const Epilogue& e) {
   Clamp c;
   c.zps = (float)(e.out_i8 ? e.out_zp - 128 : e.out_zp);
   const float dom_lo = e.out_i8 ? -128.f : 0.f;
-  c.lo = relu_like ? fmaxf(c.zps, dom_lo) : dom_lo;
-  c.hi = e.out_i8 ? 127.f : 255.f;
+  c.lo_m = (relu_like ? fmaxf(c.zps, dom_lo) : dom_lo) + kRoundMagic;
+  c.hi_m = (e.out_i8 ? 127.f : 255.f) + kRoundMagic;
   return c;
 }
 
+// rintf for the values the clamp keeps: exact below 2^22 in magnitude;
+// beyond, the result stays past 2^21 on the same side, so it clamps alike.
+// Two adds instead of a conversion (FRND), a slower pipe on the card.
+__device__ __forceinline__ float rint_clamped(float v) {
+  return __fsub_rn(__fadd_rn(v, kRoundMagic), kRoundMagic);
+}
+
+// The epilogue, computed in the kRoundMagic representation: rint(v) is v +
+// kRoundMagic, the zero point an exact add, the clamp on the shifted
+// bounds, and the code the sum's bits less kRoundMagicBits (its low byte is
+// the code's).  Equal to rintf, a float add and a clamp and a truncating
+// cast for every input: past 2^22 both sides clamp to the same bound.  The
+// leaky slope as max(v, 0.1 v) (the larger for v < 0, v itself for v >= 0).
 __device__ __forceinline__ int requant(int acc, int bias, float m, const Epilogue& e,
                                        const Clamp& c) {
   // int32 add (wrapping, as XLA's), then f32, then the multiply
   const int a = (int)((unsigned)acc + (unsigned)bias);
-  float vf = __fmul_rn(__int2float_rn(a), m);
-  float v;
-  if (e.act == ACT_LEAKY && e.exact_leaky) {
-    v = rintf(vf);
-    if (v < 0.f) v = rintf(__fmul_rn(v, 0.1f));
+  const float vf = __fmul_rn(__int2float_rn(a), m);
+  float t;
+  if (e.act == ACT_LEAKY && e.exact_leaky) {  // round(0.1 * round(v)) below 0
+    const float v = rint_clamped(vf);
+    t = __fadd_rn(v < 0.f ? __fmul_rn(v, 0.1f) : v, kRoundMagic);
   } else {
-    if (e.act == ACT_LEAKY && vf < 0.f) vf = __fmul_rn(vf, 0.1f);
-    v = rintf(vf);
+    t = __fadd_rn(e.act == ACT_LEAKY ? fmaxf(vf, __fmul_rn(vf, 0.1f)) : vf, kRoundMagic);
   }
-  return (int)fminf(fmaxf(__fadd_rn(v, c.zps), c.lo), c.hi);
+  return __float_as_int(fminf(fmaxf(__fadd_rn(t, c.zps), c.lo_m), c.hi_m)) - kRoundMagicBits;
 }
 
 constexpr int kMaxDevices = 64;  // per-device launch facts

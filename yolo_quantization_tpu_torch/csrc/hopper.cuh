@@ -1,7 +1,7 @@
 // Hopper-only device helpers (sm_90a) for the port's int8 kernels: mbarriers,
 // TMA tile loads, the proxy fence, and the int8 warpgroup MMA (wgmma) with its
-// shared-memory descriptor.  Used by qconv.cu's wgmma design; the mma.sync
-// pieces stay in common.cuh.
+// shared-memory descriptor.  Used by qconv.cu's wgmma and halo designs; the
+// mma.sync pieces stay in common.cuh.
 //
 // Conventions:
 //   - Shared addresses are 32-bit (__cvta_generic_to_shared), as PTX's
@@ -68,6 +68,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// a 3-D tile of `map` at (c0 innermost, c1, c2), as tma_load_2d
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 

@@ -4,9 +4,12 @@ Replaces ``yolo_quantization_tpu/ops/pallas_qconv.py::pallas_quantized_conv2d``:
 a fused stride-1 or stride-2 conv, the requant epilogue, and optionally (at
 stride 1) the following darknet 2x2/s2 maxpool.  The int8 carrier is an
 implicit GEMM on the int8 tensor cores over the weights packed by
-``pack_weights``, in two designs (``design``): ``wgmma`` (Hopper's
+``pack_weights``, in three designs (``design``): ``wgmma`` (Hopper's
 warpgroup MMA, weights by TMA, a warp-specialised ring) for the
-operation-bound convs, Ci a multiple of 64; ``mma.sync`` s8 for the rest.
+operation-bound convs, Ci a multiple of 64; ``halo`` (each tile's input
+halo fetched once by TMA, A read from it in place, ``mma.sync`` s8,
+16-byte stores) for the bytes-bound 3x3 convs from Ci 3, 16, 32 or 48 to
+Co 16, 32 or 64; ``mma.sync`` s8 with its own loaders for the rest.
 Unlike the Pallas kernel it takes what the
 reference engine ran on XLA: stride 2 (yolov3's downsampling convs), any
 input channel count (the 3-channel stem), asymmetric weights, a per-image
@@ -39,10 +42,11 @@ from yolo_quantization_tpu_torch.ops.qconv import (
 )
 
 launches = 0  # kernel launches since import (or since a caller reset it)
-# the same launches by design ("wgmma", "mma.sync", "int16"); reset_launches zeroes both
-design_launches = {"wgmma": 0, "mma.sync": 0, "int16": 0}
+# the same launches by design ("wgmma", "halo", "mma.sync", "int16"); reset_launches zeroes both
+design_launches = {"wgmma": 0, "halo": 0, "mma.sync": 0, "int16": 0}
 _launches_lock = threading.Lock()  # the server's threads launch concurrently
-_ROUTES = {1: "mma.sync", 2: "wgmma", 3: "int16"}  # yq_qconv's route codes
+_ROUTES = {1: "mma.sync", 2: "wgmma", 3: "int16", 4: "halo"}  # yq_qconv's route codes
+_FORCE = {None: 0, "mma.sync": 1, "wgmma": 2, "halo": 4}  # yq_qconv's design argument
 
 ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6)
 _MAX_K = 3
@@ -74,16 +78,19 @@ def reset_launches() -> None:
             design_launches[key] = 0
 
 
-def design(ci: int, k: int, co: int, carrier: str = "int8") -> str:
-    """The design the kernel launches for a conv (``qconv.cu::wgmma_route``):
-    ``wgmma`` for the int8 carrier with Ci a multiple of 64 (a K slab is one
-    tap's 64 or 128 channels) and K 1 or 3, at either stride, with any
-    option, but for the 1x1 convs that ran slower there on the H100 (Ci up
-    to 128; Co past 128 and not a multiple of 16 with Ci up to 512);
-    ``int16`` for that carrier; ``mma.sync`` for the rest (the 3-channel
-    stem and the narrow early layers, bound by bytes)."""
+def design(ci: int, k: int, co: int, carrier: str = "int8", *, pad: int, w: int) -> str:
+    """The design the kernel launches for a conv (``qconv.cu::launch_tile``):
+    ``halo`` where ``halo_capable``; ``wgmma`` for the int8 carrier with Ci a
+    multiple of 64 (a K slab is one tap's 64 or 128 channels) and K 1 or 3,
+    at either stride, with any option, but for the 1x1 convs that ran slower
+    there on the H100 (Ci up to 128; Co past 128 and not a multiple of 16
+    with Ci up to 512); ``int16`` for that carrier; ``mma.sync`` for the
+    rest (the narrow layers the halo design does not take).  ``pad`` and
+    ``w`` are the conv's padding and input width."""
     if carrier == "int16":
         return "int16"
+    if halo_capable(ci, k, co, carrier, pad=pad, w=w):
+        return "halo"
     if not wgmma_capable(ci, k, carrier) or (k == 1 and (ci <= 128 or (co > 128 and co % 16 and ci <= 512))):
         return "mma.sync"
     return "wgmma"
@@ -93,6 +100,27 @@ def wgmma_capable(ci: int, k: int, carrier: str) -> bool:
     """The convs the wgmma design can run (``qconv.cu::wgmma_takes``), routed
     there or not."""
     return carrier == "int8" and ci % 64 == 0 and k in (1, 3)
+
+
+def halo_capable(ci: int, k: int, co: int, carrier: str, *, pad: int, w: int) -> bool:
+    """The convs the halo design runs (``qconv.cu::halo_takes``), all routed
+    there: the int8 carrier, 3x3 with pad 1 at stride 1 or 2 (pooled or
+    not), Co 16, 32 or 64, and Ci 16, 32 or 48, or Ci 3 where a row of
+    W * 3 bytes is a multiple of 16 (TMA's stride rule; every darknet
+    width, a multiple of 32, is)."""
+    if carrier != "int8" or k != 3 or pad != 1 or co not in (16, 32, 64):
+        return False
+    return w % 16 == 0 if ci == 3 else ci % 16 == 0 and ci <= 48
+
+
+def forcible(ci: int, k: int, co: int, carrier: str, *, pad: int, w: int) -> tuple[str, ...]:
+    """The designs ``_design`` may force on a conv: none where only one
+    design can run it, else mma.sync and the design that takes it."""
+    if wgmma_capable(ci, k, carrier):
+        return ("mma.sync", "wgmma")
+    if halo_capable(ci, k, co, carrier, pad=pad, w=w):
+        return ("mma.sync", "halo")
+    return ()
 
 
 def pack_weights(w_i8: torch.Tensor) -> torch.Tensor:
@@ -188,10 +216,10 @@ def quantized_conv2d_cuda(
     int32 tensor; w_zp: (Co,) int32 shifted weight zero points, None for
     symmetric weights.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with
     ``out_i8``, pooled to (N,Ho/2,Wo/2,Co) with ``fuse_pool`` (stride 1
-    only).  ``_design`` ("mma.sync" or "wgmma") forces a design on a conv
-    that the wgmma design can run, whatever ``design`` routes it to; only
-    the timing tool and the smoke run pass it, to hold and time both
-    designs on the same conv.
+    only).  ``_design`` ("mma.sync", "wgmma" or "halo") forces a design on a
+    conv that the wgmma or the halo design can run (``forcible``), whatever
+    ``design`` routes it to; only the timing tool, the tests and the smoke
+    run pass it, to hold and time two designs on the same conv.
     """
     global launches
     if stride not in _STRIDES:
@@ -213,11 +241,11 @@ def quantized_conv2d_cuda(
         raise ValueError(f"unsupported conv carrier {carrier!r}")
     if fuse_pool and (h_out % 2 or w_out % 2):
         raise ValueError("fuse_pool requires even conv output dims")
-    if _design not in (None, "mma.sync", "wgmma"):
-        raise ValueError(f"_design: 'mma.sync' or 'wgmma' may be forced, got {_design!r}")
-    if _design and not wgmma_capable(ci, k, carrier):
-        raise ValueError(f"_design: the wgmma design cannot run a {k}x{k} conv from {ci} channels ({carrier}), "
-                         "so there is no choice to force")
+    if _design not in _FORCE:
+        raise ValueError(f"_design: 'mma.sync', 'wgmma' or 'halo' may be forced, got {_design!r}")
+    if _design and _design not in forcible(ci, k, co, carrier, pad=pad, w=w):
+        raise ValueError(f"_design: {_design!r} cannot run a {k}x{k} conv (pad {pad}) from {ci} to {co} channels "
+                         f"at width {w} ({carrier}); forcible there: {forcible(ci, k, co, carrier, pad=pad, w=w)}")
     x_zp = per_image_zp(x_zp_i32, n)
 
     if x_u8.device.type == "cpu":
@@ -261,14 +289,14 @@ def quantized_conv2d_cuda(
             zp_ptr, bias_i32.data_ptr(), m.data_ptr(), out.data_ptr(),
             n, h, w, ci, co, k, pad, stride, zp_static, int(out_zp_static), act, int(exact_leaky),
             int(out_i8), int(fuse_pool), int(per_image), int(carrier == "int16"),
-            {None: 0, "mma.sync": 1, "wgmma": 2}[_design], ctypes.byref(route), stream,
+            _FORCE[_design], ctypes.byref(route), stream,
         )
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")
     launched = _ROUTES.get(route.value)
-    if launched != (_design or design(ci, k, co, carrier)):
-        raise RuntimeError(f"qconv launched design {launched!r} (route {route.value}), expected "
-                           f"{_design or design(ci, k, co, carrier)!r}")
+    expected = _design or design(ci, k, co, carrier, pad=pad, w=w)
+    if launched != expected:
+        raise RuntimeError(f"qconv launched design {launched!r} (route {route.value}), expected {expected!r}")
     with _launches_lock:
         launches += 1
         design_launches[launched] += 1

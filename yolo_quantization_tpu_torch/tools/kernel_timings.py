@@ -5,9 +5,10 @@
 A kernel's time is its device time: 20 calls captured in one CUDA graph,
 replayed between CUDA events, so the wrapper's host cost (Python checks,
 ctypes) is left out; the eager back-to-back time, which includes that host
-cost, is printed beside it.  K1's convs that its wgmma design can run are
-timed in both designs in turns (routed, other, other, routed; the other
-forced by the wrapper's private ``_design``).  Per-layer K1 vs plain (and
+cost, is printed beside it.  K1's convs that its wgmma or halo design
+can run are timed in both designs in turns (routed, other, other, routed;
+the other forced by the wrapper's private ``_design``), and the halo
+design's convs on the four models beside their bounds (``time_k1_halo``).  Per-layer K1 vs plain (and
 ``torch._int_mm``,
 graph-timed, on the 1x1 layers its shape rules allow) on the flagship's 13
 convs and on yolov3's five stride-2 convs, K2 vs K1's fused stem per layer,
@@ -20,10 +21,11 @@ cases vs ``torch._int_mm``.  Each time sits beside its bound.  Prints,
 checks nothing.
 
 ``chip_smoke.py`` runs ``time_all`` as its last phase.  Run alone, the
-module builds the kernels and the engines itself; copied into an older
-checkout whose wrappers take the same arguments, it times that checkout's
-kernels with the same code, which is how two versions are compared on one
-card.  Imports nothing of JAX.
+module builds the kernels and the engines itself; copied into another
+checkout whose wrappers take the same arguments (``cuda_qconv.forcible``
+and ``design(..., pad=, w=)`` included), it times that checkout's kernels
+with the same code, which is how two versions are compared on one card.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -79,20 +81,22 @@ def random_layer(rng, n, h, w, ci, co, k):
     return x, wt, bias, m
 
 
-def designs(cuda_qconv, ci: int, k: int, co: int) -> tuple:
+def designs(cuda_qconv, ci: int, k: int, co: int, pad: int, w: int) -> tuple:
     """The ``_design`` values to time a conv under: the routed one first,
-    then the other where the wgmma design can run the conv (a checkout
-    without the wgmma design has the default only)."""
-    if not hasattr(cuda_qconv, "design") or not cuda_qconv.wgmma_capable(ci, k, "int8"):
+    then the other one the wrapper may force (mma.sync, or the design that
+    takes the conv); the default only where there is no choice."""
+    choice = cuda_qconv.forcible(ci, k, co, "int8", pad=pad, w=w)
+    if not choice:
         return (None,)
-    routed = cuda_qconv.design(ci, k, co)
-    return (routed, "mma.sync" if routed == "wgmma" else "wgmma")
+    routed = cuda_qconv.design(ci, k, co, pad=pad, w=w)
+    return (routed, choice[1] if routed == "mma.sync" else "mma.sync")
 
 
-def time_designs(cuda_qconv, ci, k, co, call) -> dict:
+def time_designs(cuda_qconv, ci, k, co, call, *, pad, w) -> dict:
     """Graph-timed device time of ``call(_design)`` for each of ``designs``,
-    in turns (a, b, b, a): {design: ms}, the routed one also under None."""
-    ds = designs(cuda_qconv, ci, k, co)
+    in turns (a, b, b, a): {design: ms}, the routed one first and also
+    under None."""
+    ds = designs(cuda_qconv, ci, k, co, pad, w)
     order = ds + ds[::-1]
     times = [graph_time_ms(lambda d=d: call(d)) for d in order]
     ms = {d: (times[i] + times[len(order) - 1 - i]) / 2 for i, d in enumerate(ds)}
@@ -100,13 +104,13 @@ def time_designs(cuda_qconv, ci, k, co, call) -> dict:
     return ms
 
 
-def design_note(cuda_qconv, ci, k, co, ms: dict, bound: float) -> str:
+def design_note(ms: dict, bound: float) -> str:
     """" [routed design]; other design x ms (share of bound)" where the
-    conv has two designs."""
-    if len(ms) < 3:
+    conv has two designs (``time_designs``' order)."""
+    names = [d for d in ms if d is not None]
+    if len(names) < 2:
         return ""
-    routed = cuda_qconv.design(ci, k, co)
-    other = "mma.sync" if routed == "wgmma" else "wgmma"
+    routed, other = names
     return (f" [{routed}]; {other} {ms[other]:.4f} ms ({bound / ms[other]:.1%} of bound, "
             f"{ms[other] / ms[None]:.2f}x the routed time)")
 
@@ -185,6 +189,70 @@ def v2_layers():
             act = ACT_LINEAR if s.activation == "linear" else ACT_LEAKY
             out.append((f"{model}.{i}", h, w, ci, s.filters, s.size, s.pad, act))
     return out
+
+
+def halo_layers():
+    """(model, layer, batch, h, w, ci, co, stride, fuse_pool, act) of the
+    convs the halo design takes at 416 (Ci 3, 16, 32), at the batches
+    timed: the flagship's (yolov3-tiny's, as yolov2-tiny's) layers 0, 2, 4
+    at 1 (the serving path, where layer 4's tiles are fewer than the SMs)
+    and 16, yolov3's 0, 1 (stride 2) and 3 at 16 and 64, yolov2's 0 and 2 at
+    16.  A conv followed by a 2x2/s2 pool at stride 1 has it fused, as in
+    the engine's plan for these layers."""
+    from yolo_quantization_tpu_torch.models import zoo
+    from yolo_quantization_tpu_torch.nn.graph import ConvSpec, MaxPoolSpec
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_RELU6
+
+    out = []
+    for model, batches in (("yolov3_tiny", (1, 16)), ("yolov3", (16, 64)), ("yolov2", (16,))):
+        net = getattr(zoo, model)(**({"classes": 5} if model == "yolov3_tiny" else {}), width=416, height=416)
+        shapes = net.shapes()
+        for n in batches:
+            for i, sp in enumerate(net.specs):
+                h, w, ci = shapes[i - 1] if i else (416, 416, 3)
+                if not (isinstance(sp, ConvSpec) and sp.size == 3 and ci in (3, 16, 32)):
+                    continue
+                nxt = net.specs[i + 1]
+                pool = sp.stride == 1 and isinstance(nxt, MaxPoolSpec) and (nxt.size, nxt.stride) == (2, 2)
+                act = ACT_RELU6 if model == "yolov3_tiny" else ACT_LEAKY  # the flagship program is relu6
+                out.append((model, i, n, h, w, ci, sp.filters, sp.stride, pool, act))
+    return out
+
+
+def time_k1_halo(cuda_qconv, rng, card):
+    """K1 on ``halo_layers``, symmetric, in both designs in turns
+    (graph-timed), beside the bound: bytes (input, weights, bias and m,
+    output, each once) or int8 operations, whichever is longer."""
+    log(f"  K1 on the halo design's convs [{card}]: kernel graph-timed, both designs in turns:")
+    sums = {}
+    for (model, i, n, h, w, ci, co, stride, pool, act) in halo_layers():
+        x, wt, bias, m = random_layer(rng, n, h, w, ci, co, 3)
+        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+        wp = cuda_qconv.pack_weights(wt_t)
+
+        def call(design=None):
+            kw = {"_design": design} if design else {}
+            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, stride=stride, pad=1, act=act,
+                                             out_zp_static=0, fuse_pool=pool, out_i8=True, w_packed=wp, **kw)
+
+        ms = time_designs(cuda_qconv, ci, 3, co, call, pad=1, w=w)
+        oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+        mac = n * oh * ow * co * 9 * ci
+        out_px = n * (oh // 2) * (ow // 2) if pool else n * oh * ow
+        bound = bound_ms(n * h * w * ci + 9 * ci * co + 8 * co + out_px * co, 2 * mac)
+        key = (model, n)
+        t = sums.setdefault(key, {d: 0.0 for d in ms})
+        for d in ms:
+            t[d] = t.get(d, 0.0) + ms[d]
+        t["bound"] = t.get("bound", 0.0) + bound[0]
+        log(f"    {model} layer {i} batch {n}: {h}x{w}x{ci}->{oh}x{ow}x{co} s{stride}{' +pool' if pool else ''}: "
+            f"kernel {ms[None]:.4f} ms ({bound[0] / ms[None]:.1%} of bound){design_note(ms, bound[0])}, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    for (model, n), t in sums.items():
+        other = " ".join(f"{d} {v:.4f} ms" for d, v in t.items() if d not in (None, "bound"))
+        log(f"  {model} batch {n}, these convs: routed {t[None]:.4f} ms ({other}), bound {t['bound']:.4f} ms "
+            f"[{card}]")
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -285,7 +353,7 @@ def time_k1_layers(cuda_qconv, qconv, rng, card):
                                        symmetric=True, out_i8=True)
 
         # the designs in turns (graph), then the eager form
-        ms = time_designs(cuda_qconv, ci, k, co, call)
+        ms = time_designs(cuda_qconv, ci, k, co, call, pad=pad, w=w)
         k_ms, e_ms = ms[None], cuda_time_ms(kernel, 20)
         p_ms = cuda_time_ms(plain, 5, warmup=1)
         lib_ms = lib_eager = None
@@ -301,7 +369,7 @@ def time_k1_layers(cuda_qconv, qconv, rng, card):
         lib = f"{lib_ms:.4f} ms (eager {lib_eager:.4f})" if lib_ms is not None else "none"
         log(f"    layer {i:2d} {h}x{w}x{ci}->{co} k{k}{' +pool' if fused else ''}: kernel "
             f"{k_ms:.4f} ms ({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound)"
-            f"{design_note(cuda_qconv, ci, k, co, ms, bound[0])}, "
+            f"{design_note(ms, bound[0])}, "
             f"eager {e_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
             f"_int_mm {lib} [{card}]")
     log(f"  all 13 convs at batch 16: kernel {tot.ms:.4f} ms (graph; every conv on mma.sync "
@@ -331,7 +399,7 @@ def time_k1_stride2(cuda_qconv, qconv, rng, card):
             qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, stride=2, pad=pad, act=ACT_LEAKY,
                                    symmetric=True, out_i8=True)
 
-        ms = time_designs(cuda_qconv, ci, k, co, call)
+        ms = time_designs(cuda_qconv, ci, k, co, call, pad=pad, w=w)
         k_ms, e1 = ms[None], cuda_time_ms(call, 20)
         p_ms = cuda_time_ms(plain, 5, warmup=1)
         oh, ow = (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1
@@ -341,7 +409,7 @@ def time_k1_stride2(cuda_qconv, qconv, rng, card):
         tot.earlier_ms += ms.get("mma.sync", k_ms)
         log(f"    layer {i:2d} {h}x{w}x{ci}->{oh}x{ow}x{co} k{k}/s2: kernel {k_ms:.4f} ms "
             f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound)"
-            f"{design_note(cuda_qconv, ci, k, co, ms, bound[0])}, eager {e1:.4f} ms, "
+            f"{design_note(ms, bound[0])}, eager {e1:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), library none [{card}]")
     log(f"  the five stride-2 convs at batch 16: kernel {tot.ms:.4f} ms (every conv on mma.sync "
         f"{tot.earlier_ms:.4f} ms), plain {tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
@@ -398,7 +466,7 @@ def time_k1_v2(cuda_qconv, qconv, rng, card):
             qconv.quantized_conv2d(xt, wt_t, b_t, m_t, 3, None, 0, pad=pad, act=act, symmetric=True,
                                    out_i8=True)
 
-        ms = time_designs(cuda_qconv, ci, k, co, call)
+        ms = time_designs(cuda_qconv, ci, k, co, call, pad=pad, w=w)
         k_ms, e1 = ms[None], cuda_time_ms(call, 20)
         p_ms = cuda_time_ms(plain, 3, warmup=1)
         lib_ms = None
@@ -412,7 +480,7 @@ def time_k1_v2(cuda_qconv, qconv, rng, card):
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         log(f"    {name:14s} {h}x{w}x{ci}->{co} k{k} (GEMM K {k * k * ci}): kernel {k_ms:.4f} ms "
             f"({mac / 1e9 / k_ms:.2f} TMAC/s, {bound[0] / k_ms:.1%} of bound)"
-            f"{design_note(cuda_qconv, ci, k, co, ms, bound[0])}, eager {e1:.4f} ms, "
+            f"{design_note(ms, bound[0])}, eager {e1:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), _int_mm {lib} [{card}]")
     log(f"  the yolov2 family's new shapes at batch 16: kernel {tot.ms:.4f} ms (every conv on mma.sync "
         f"{tot.earlier_ms:.4f} ms), plain {tot.plain_ms:.4f} ms, bound {tot.bound_ms:.4f} ms [{card}]")
@@ -440,13 +508,13 @@ def time_k1_v3(cuda_qconv, rng, card, batches=(16, 64)):
                 cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=pad, act=ACT_LEAKY,
                                                  out_zp_static=0, out_i8=True, w_packed=wp, **kw)
 
-            ms = time_designs(cuda_qconv, ci, k, co, call)
+            ms = time_designs(cuda_qconv, ci, k, co, call, pad=pad, w=w)
             mac = n * h * w * co * k * k * ci
             bound = bound_ms(n * h * w * ci + k * k * ci * co + 8 * co + n * h * w * co, 2 * mac)
             tot.add(ms[None], 0.0, 0.0, bound, None)
             tot.earlier_ms += ms.get("mma.sync", ms[None])
             log(f"    batch {n} {h}x{w}x{ci}->{co} k{k}: kernel {ms[None]:.4f} ms ({mac / 1e9 / ms[None]:.2f} "
-                f"TMAC/s, {bound[0] / ms[None]:.1%} of bound){design_note(cuda_qconv, ci, k, co, ms, bound[0])}, "
+                f"TMAC/s, {bound[0] / ms[None]:.1%} of bound){design_note(ms, bound[0])}, "
                 f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
         log(f"  yolov3's {len(v3_layers())} stride-1 shapes from Ci 64 at batch {n}: kernel {tot.ms:.4f} ms "
             f"(every conv on mma.sync {tot.earlier_ms:.4f} ms), bound {tot.bound_ms:.4f} ms [{card}]")
@@ -559,6 +627,7 @@ def time_all(engines, probe_results, card, rng):
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
     k1 = time_k1_layers(cuda_qconv, qconv, rng, card)
+    time_k1_halo(cuda_qconv, np.random.default_rng(5), card)
     time_k1_stride2(cuda_qconv, qconv, rng, card)
     time_k1_v3(cuda_qconv, np.random.default_rng(3), card)
     k2 = time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card)

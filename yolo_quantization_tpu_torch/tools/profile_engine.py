@@ -31,8 +31,9 @@ from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity
 ITERS = 5
 # the hand-written kernels by the names of their __global__ functions; K1
 # whole, then by design
-KERNELS = {"K1 qconv": ("qconv_wgmma_kernel", "qconv_mma_kernel", "qconv_i16_kernel"),
-           "K1 wgmma": ("qconv_wgmma_kernel",), "K1 mma.sync": ("qconv_mma_kernel",),
+KERNELS = {"K1 qconv": ("qconv_wgmma_kernel", "qconv_halo_kernel", "qconv_mma_kernel", "qconv_i16_kernel"),
+           "K1 wgmma": ("qconv_wgmma_kernel",), "K1 halo": ("qconv_halo_kernel",),
+           "K1 mma.sync": ("qconv_mma_kernel",),
            "K2 s2d_qconv": ("s2d_mma_kernel",), "shortcut": ("shortcut_kernel",)}
 
 
