@@ -3,18 +3,25 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases; any failure raises and the script exits non-zero.  They run in
+this order but for three moves that keep the script inside its time limit:
+phase 10 (no kernel of the repo) runs while phase 2's nvcc processes
+build; phase 20 (b) trains in a process of its own from the end of phase 2
+to the end of phase 14, and phases 12 and 14 run before phase 9, so that
+no timed phase (9, 11, 15-19) runs beside it:
 
   1. card identity (nvidia-smi name and power limit, torch device name);
   2. build the four kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
-     gemm_probe.cu, shortcut.cu), one nvcc each, all started together; print
+     gemm_probe.cu, shortcut.cu), one nvcc each, all started together, while
+     phase 10 (which launches none of them) runs; print
      each kernel's ptxas registers, spills and static shared memory, and its
      IMMA (int8 mma.sync), IGMMA (int8 wgmma), UTMALDG (a TMA load) and IDP
      (__dp4a) instructions from cuobjdump's SASS; K1's mma.sync
      instantiations, every K2 instantiation and both probe kernels must hold
-     IMMA, K1's wgmma instantiations IGMMA and no IMMA, its halo
-     instantiations IMMA and UTMALDG, and K1's symmetric ones (every
-     design), K2's and orientation_b no IDP;
+     IMMA, K1's wgmma instantiations IGMMA and no IMMA, the halo
+     instantiations (csrc/halo.cuh's kernel, K1's and K2's) IMMA and
+     UTMALDG, and K1's symmetric ones (every design), K2's and orientation_b
+     no IDP;
   3. K1 (qconv) vs its plain PyTorch version, bit for bit: every flagship
      conv shape at 416x416, at batch 2 plain and with each reference-engine
      option (asymmetric w_zp, per-image zp and (N,Co) bias/m, exact_leaky,
@@ -38,8 +45,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. K2 (s2d_qconv) vs its plain version, bit for bit: layers 0, 2, 4 at 416,
      batch 2, every activation, per-image zp/bias/m, exact_leaky, and at
      batch 16 (the timed shapes) plain and with the per-image options;
-     non-square maps, and a case per entry of K2's tile table with partial
-     M and N tiles and an arbitrary block kernel;
+     non-square maps, and a case per entry of K2's mma.sync tile table with
+     partial M and N tiles and an arbitrary (dense) block kernel; every
+     structured case the halo design takes runs there and again forced onto
+     mma.sync; then the halo design's own cases: layers 0, 2, 4 with four
+     distinct phase kernels, and its edges (C 3, 16, 32, 48; O 16, 32, 64;
+     tiles past the map's edge) with one and with four;
   5. K3 (orientation_a/b): the probe's four cases at the script's full
      sizes, each kernel vs its plain version bit for bit — the probe's main
      path, whose launches are counted; then orientation_b on a P that is not
@@ -59,8 +70,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      weights, dynamic_input, exact_leaky), 75 K1 + 23 shortcut launches per
      forward; each engine's predict is a main path with counted launches,
      K1's also by design: 10 wgmma + 3 halo a flagship forward (s2d 10 + 0,
-     int16 13 on its own kernel), 67 wgmma + 3 halo + 5 mma.sync a yolov3
-     forward;
+     with its 3 K2 launches on K2's halo design; int16 13 on its own
+     kernel), 67 wgmma + 3 halo + 5 mma.sync a yolov3 forward;
   7. flip TTA and at_size(320) agree between GPU and CPU for yolov3-tiny and
      yolov3, and f1_rows over GPU and CPU predictions gives equal counts;
   8. Servers with the (1, 4, 16) bucket ladder answer seeded requests of
@@ -73,11 +84,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      in both designs, in turns; the halo design's convs (the flagship's
      layers 0, 2, 4 at 16, yolov3's 0, 1, 3 at 16 and 64, yolov2's 0, 2 at
      16) in both designs beside their bounds; K1 on yolov3's stride-2 convs and on its
-     stride-1 shapes from Ci 64 at batch 16 and 64; the shortcut kernel per
+     stride-1 shapes from Ci 64 at batch 16; K2 on layers 0, 2, 4 at 1 and
+     16 by design (halo with one and with four slices, mma.sync) beside K1's
+     fused stages and both of K2's bounds; the shortcut kernel per
      yolov3 stage; the engines' device forwards;
- 10. the QAT forward and backward, GPU against CPU (tools/qat_check.py):
-     TF32 left at PyTorch's default, a float conv and its weight gradient
-     must match float64 to float32 accuracy (TF32 off inside the port);
+ 10. (run during phase 2's build) the QAT forward and backward, GPU
+     against CPU (tools/qat_check.py): TF32 left at PyTorch's default, a
+     float conv and its weight gradient must match float64 to float32
+     accuracy (TF32 off inside the port);
      yolov3-tiny at 416, batch 4: the whole float-train forward held by its
      loss, then every layer from the CPU's inputs and loss cotangents in the
      float-train, EMA-QAT-train, QAT-eval and learned modes (outputs, range
@@ -175,7 +189,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      F1| <= 0.5 must hold), then tools/accuracy_capstone.py at the
      flagship's configuration (yolov3-tiny, relu6, 416, 5 classes, batch
      32, multiscale 320/416/512, 200 eval images) at 1500 steps, QAT from
-     600 (the tool's 3000 runs alone; CAPSTONE_STEPS says why): integer F1
+     600 (the tool's 3000 runs alone; CAPSTONE_STEPS says why), in its own
+     process (start_flagship_capstone): integer F1
      >= float - 0.5 and >= QAT-sim - 0.5 must hold, every printed loss
      finite, 104 K1 launches; then --bf16, --v3 (75 K1 + 23 shortcut launches a
      batch), --v2, --leaky, --learned (400 steps), --percentile and
@@ -189,13 +204,17 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import os
+import queue
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -292,16 +311,17 @@ def demangle(names) -> dict[str, str]:
     return dict(zip(names, got)) if len(got) == len(names) else {n: n for n in names}
 
 
-def phase_kernel_report(libs) -> tuple[list, list]:
+def phase_kernel_report(libs) -> tuple[list, list, list]:
     """Print ptxas and SASS facts per kernel; K1's mma.sync instantiations,
     K2's and the probe kernels must run on IMMA, K1's wgmma ones on IGMMA
-    with no IMMA, its halo ones on IMMA fed by TMA (UTMALDG), and K1's
-    symmetric int8 ones (every design), K2's and orientation_b must hold no
-    IDP (no product on __dp4a).  Returns the wgmma and the halo
+    with no IMMA, the halo ones (halo.cuh's kernel, in K1's library and in
+    K2's) on IMMA fed by TMA (UTMALDG), and K1's symmetric int8 ones (every
+    design), K2's and orientation_b must hold no IDP (no product on
+    __dp4a).  Returns the K1 wgmma, the K1 halo and the K2 halo
     instantiations' names."""
     from yolo_quantization_tpu_torch.ops import _build
 
-    wgmma, halo = [], []
+    wgmma, halo, s2d_halo = [], [], []
     for name in libs:
         ptx = ptxas_report(_build.build_log.get(name, ""))
         sass = sass_counts(_build.library_path(name))
@@ -320,21 +340,22 @@ def phase_kernel_report(libs) -> tuple[list, list]:
                 if counts["IGMMA"] == 0 or counts["IMMA"]:
                     raise AssertionError(f"{readable[fn]}: IGMMA {counts['IGMMA']}, IMMA {counts['IMMA']}; "
                                          "the wgmma design must run on wgmma alone")
-            if "qconv_halo" in fn:
-                halo.append(readable[fn])
+            if "halo_kernel" in fn:
+                (s2d_halo if name == "s2d_qconv" else halo).append(readable[fn])
                 if counts["IMMA"] == 0 or counts["UTMALDG"] == 0:
                     raise AssertionError(f"{readable[fn]}: IMMA {counts['IMMA']}, UTMALDG {counts['UTMALDG']}; "
                                          "the halo design multiplies on mma.sync a halo fetched by TMA")
             if (name == "s2d_qconv" or "orientation_b" in fn) and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a product runs on __dp4a")
             # the ASYM flag: the fifth template argument of each design's kernel
-            args = re.search(r"qconv_(mma|wgmma|halo)_kernelI((?:L[a-z]\d+E)+)E", fn)
+            args = re.search(r"(qconv_mma|qconv_wgmma|halo)_kernelI((?:L[a-z]\d+E)+)", fn)
             asym = args and re.findall(r"L[a-z](\d+)E", args.group(2))[4] == "1"
             if args and not asym and counts["IDP"]:
                 raise AssertionError(f"{readable[fn]}: a symmetric int8 conv runs __dp4a")
-    if not wgmma or not halo:
-        raise AssertionError(f"K1's build holds {len(wgmma)} wgmma and {len(halo)} halo instantiations")
-    return wgmma, halo
+    if not wgmma or not halo or not s2d_halo:
+        raise AssertionError(f"K1's build holds {len(wgmma)} wgmma and {len(halo)} halo instantiations, "
+                             f"K2's {len(s2d_halo)} halo ones")
+    return wgmma, halo, s2d_halo
 
 
 class Errors:
@@ -579,9 +600,22 @@ S2D_TILE_EDGES = (
 )
 
 
+# K2's halo design's edges (n, h, w, c, o), as
+# tests/test_torch_s2d_halo.py::S2D_HALO_EDGES: the flagship's stem shapes
+# cut in height, batch 1 and 3, tiles past the map's edge in both
+# directions, every C (3, 16, 32, 48) and O (16, 32, 64) it takes
+S2D_HALO_EDGES = (
+    (1, 30, 48, 3, 16), (3, 18, 416, 3, 16), (2, 34, 80, 3, 32), (1, 10, 32, 3, 64),
+    (2, 26, 208, 16, 32), (1, 14, 66, 16, 16), (3, 12, 104, 32, 64), (1, 22, 38, 32, 32),
+    (2, 6, 34, 48, 64), (1, 18, 50, 48, 16),
+)
+
+
 def s2d_cases():
-    """(name, n, h, w, ci, co, act, per-image zp/bias/m, exact_leaky, an
-    arbitrary block kernel instead of _s2d_weights')."""
+    """(name, n, h, w, ci, co, act, per-image zp/bias/m, exact_leaky, block
+    kernel): "s2d" is _s2d_weights' of one 3x3 kernel (as the engine
+    converts it; structured, one shared slice), "phases" four phases' own
+    kernels (structured, four slices), "any" an arbitrary one (dense)."""
     from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_LINEAR, ACT_RELU, ACT_RELU6
     from yolo_quantization_tpu_torch.tools.kernel_timings import S2D_LAYERS, flagship_layers
 
@@ -590,31 +624,57 @@ def s2d_cases():
         if i not in S2D_LAYERS:
             continue
         for act in (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6):
-            cases.append((f"layer{i}_act{act}", 2, h, w, ci, co, act, False, False, False))
-        cases.append((f"layer{i}_dyn_exact", 2, h, w, ci, co, ACT_LEAKY, True, True, False))
-        cases.append((f"layer{i}_b16", 16, h, w, ci, co, ACT_RELU6, False, False, False))
-        cases.append((f"layer{i}_b16_dyn_exact", 16, h, w, ci, co, ACT_LEAKY, True, True, False))
+            cases.append((f"layer{i}_act{act}", 2, h, w, ci, co, act, False, False, "s2d"))
+        cases.append((f"layer{i}_dyn_exact", 2, h, w, ci, co, ACT_LEAKY, True, True, "s2d"))
+        cases.append((f"layer{i}_b16", 16, h, w, ci, co, ACT_RELU6, False, False, "s2d"))
+        cases.append((f"layer{i}_b16_dyn_exact", 16, h, w, ci, co, ACT_LEAKY, True, True, "s2d"))
     cases += [
-        ("nonsquare_partial_c5", 2, 30, 22, 5, 24, ACT_LEAKY, True, True, False),
-        ("nonsquare_partial_c16", 3, 50, 84, 16, 40, ACT_RELU6, False, False, False),
-        ("nonsquare_c32", 1, 36, 20, 32, 64, ACT_LINEAR, True, False, False),
+        ("nonsquare_partial_c5", 2, 30, 22, 5, 24, ACT_LEAKY, True, True, "s2d"),
+        ("nonsquare_partial_c16", 3, 50, 84, 16, 40, ACT_RELU6, False, False, "s2d"),
+        ("nonsquare_c32", 1, 36, 20, 32, 64, ACT_LINEAR, True, False, "s2d"),
     ]
     for j, (n, h, w, ci, co) in enumerate(S2D_TILE_EDGES):
-        cases.append((f"edge{j}", n, h, w, ci, co, ACT_LEAKY, True, True, True))
+        cases.append((f"edge{j}", n, h, w, ci, co, ACT_LEAKY, True, True, "any"))
     return cases
 
 
-def phase_k2(cuda_s2d, qconv, rng, errors):
+def s2d_halo_cases():
+    """The halo design's own cases (drawn from their own generator): the
+    flagship's s2d layers with four phase kernels, and S2D_HALO_EDGES with
+    one and with four."""
+    from yolo_quantization_tpu_torch.ops.qconv import ACT_LEAKY, ACT_RELU6
+    from yolo_quantization_tpu_torch.tools.kernel_timings import S2D_LAYERS, flagship_layers
+
+    cases = []
+    for (i, h, w, ci, co, *_rest) in flagship_layers():
+        if i in S2D_LAYERS:
+            cases.append((f"layer{i}_phases", 2, h, w, ci, co, ACT_RELU6, False, False, "phases"))
+            cases.append((f"layer{i}_phases_dyn_exact", 2, h, w, ci, co, ACT_LEAKY, True, True, "phases"))
+    for j, (n, h, w, ci, co) in enumerate(S2D_HALO_EDGES):
+        for kind in ("s2d", "phases"):
+            cases.append((f"halo_edge{j}_{kind}", n, h, w, ci, co, ACT_LEAKY, True, True, kind))
+    return cases
+
+
+def phase_k2(cuda_s2d, qconv, rng, errors, cases):
+    """K2 on ``cases`` against the plain version: the structured ones on
+    the design they route to and, where the halo design takes them, forced
+    onto mma.sync too; the dense ones on mma.sync.  Returns the runs by
+    design."""
     from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
     from yolo_quantization_tpu_torch.tools.kernel_timings import random_layer
 
-    cases = s2d_cases()
-    for (name, n, h, w, ci, co, act, dyn, exact, any_w) in cases:
+    runs = {"halo": 0, "mma.sync": 0}
+    for (name, n, h, w, ci, co, act, dyn, exact, kind) in cases:
         x, wt, bias, m = random_layer(rng, n, h, w, ci, co, 3)
         w_s2d = _s2d_weights(wt)
-        if any_w:  # every tap nonzero: 4x the terms, so a smaller m keeps codes off the clamps
+        if kind == "any":  # every tap nonzero: 4x the terms, so a smaller m keeps codes off the clamps
             w_s2d = rng.integers(-127, 128, w_s2d.shape).astype(np.int8)
             m = m / 2
+        elif kind == "phases":  # phase ph's columns from a 3x3 kernel of its own
+            for ph in range(1, 4):
+                other = _s2d_weights(rng.integers(-127, 128, wt.shape).astype(np.int8))
+                w_s2d[..., ph * co:(ph + 1) * co] = other[..., ph * co:(ph + 1) * co]
         if dyn:
             bias = rng.integers(-(2**14), 2**14, (n, co)).astype(np.int32)
             m = np.tile(m, (n, 1)) * rng.uniform(0.8, 1.25, (n, 1)).astype(np.float32)
@@ -624,12 +684,24 @@ def phase_k2(cuda_s2d, qconv, rng, errors):
         zp_t = torch.from_numpy(x_zp).cuda() if dyn else x_zp
         ref = qconv.s2d_conv_phase_max(qconv.space_to_depth(xt), ws_t, b_t, m_t, zp_t, out_zp,
                                        act=act, exact_leaky=exact)
-        got = cuda_s2d.s2d_conv_phase_max_cuda(xt, ws_t, b_t, m_t, zp_t, act=act,
-                                               out_zp_static=out_zp, exact_leaky=exact)
-        errors.check("s2d_qconv", name, got, ref)
-        log(f"  {name:24s} x{(n, h, w, ci)} -> {co} act={act} per_image={dyn} "
-            f"exact_leaky={exact}{' any w_s2d' if any_w else ''}: equal")
-    return len(cases)
+        packed = cuda_s2d.pack_weights(ws_t)
+        routed = cuda_s2d.design(ci, co, w=w, structured=packed.dim() == 3)
+        if (routed == "halo") != (kind != "any" and cuda_s2d.halo_capable(ci, co, w=w)):
+            raise AssertionError(f"K2 {name}: routed to {routed}")
+        ran = [routed] + (["mma.sync"] if routed == "halo" else [])
+        for design in ran:
+            before = dict(cuda_s2d.design_launches)
+            got = cuda_s2d.s2d_conv_phase_max_cuda(
+                xt, ws_t, b_t, m_t, zp_t, act=act, out_zp_static=out_zp, exact_leaky=exact, w_packed=packed,
+                _design="mma.sync" if design != routed else None)
+            errors.check("s2d_qconv", f"{name} ({design})", got, ref)
+            if cuda_s2d.design_launches[design] != before[design] + 1:
+                raise AssertionError(f"K2 {name}: no {design} launch counted")
+            runs[design] += 1
+        slices = f", {packed.shape[0]} slice(s)" if packed.dim() == 3 else ""
+        log(f"  {name:26s} x{(n, h, w, ci)} -> {co} act={act} per_image={dyn} exact_leaky={exact} "
+            f"w_s2d {kind}{slices}: equal ({' and '.join(ran)})")
+    return runs
 
 
 def phase_probe(probe, errors):
@@ -699,7 +771,9 @@ def engine_configs():
     ``tools/profile_engine.py`` builds them.  wgmma takes the convs from Ci
     64 (the flagship's layers 6-22, 67 of yolov3's 75), halo the narrow 3x3
     stem convs (the flagship's 0, 2, 4; yolov3's 0, 1, 3), mma.sync the 1x1
-    convs sent back from wgmma (yolov3's 2, 6, 9, 93 and 105; PERF.md)."""
+    convs sent back from wgmma (yolov3's 2, 6, 9, 93 and 105; PERF.md).
+    K2 (the ``s2d`` engine's layers 0, 2, 4) runs its halo design alone
+    (``K2_SPLIT``)."""
     from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_program
     from yolo_quantization_tpu_torch.tools.profile_engine import configurations
 
@@ -717,6 +791,10 @@ def engine_configs():
     }
 
 
+# K2's launches per forward by design (halo, mma.sync), per configuration
+K2_SPLIT = {"s2d": (3, 0)}
+
+
 def reset_counts(*wrappers):
     for w in wrappers:
         if hasattr(w, "reset_launches"):  # K1: its per-design counts too
@@ -730,6 +808,11 @@ def design_split(cuda_qconv) -> tuple[int, int, int, int]:
     int16)."""
     d = cuda_qconv.design_launches
     return d["wgmma"], d["halo"], d["mma.sync"], d["int16"]
+
+
+def k2_split(cuda_s2d) -> tuple[int, int]:
+    """K2's launches since the last reset by design: (halo, mma.sync)."""
+    return cuda_s2d.design_launches["halo"], cuda_s2d.design_launches["mma.sync"]
 
 
 def phase_engines(Engine, counters, rng):
@@ -756,6 +839,9 @@ def phase_engines(Engine, counters, rng):
             if design_split(counters[0]) != split:
                 raise AssertionError(f"{cname}: K1 launches by design (wgmma, halo, mma.sync, int16) "
                                      f"{design_split(counters[0])}, expected {split}")
+            if k2_split(counters[1]) != K2_SPLIT.get(cname, (0, 0)):
+                raise AssertionError(f"{cname}: K2 launches by design (halo, mma.sync) {k2_split(counters[1])}, "
+                                     f"expected {K2_SPLIT.get(cname, (0, 0))}")
             heads_c, outs_c = eng_cpu.raw_heads(batch, return_outputs=True)
             for i, (g, c) in enumerate(zip(outs_g, outs_c)):
                 if g.dtype != c.dtype or not np.array_equal(g, c):
@@ -772,14 +858,16 @@ def phase_engines(Engine, counters, rng):
             log(f"  {cname} {name} batch of {len(batch)}: all {len(outs_g)} layer outputs equal to the CPU "
                 f"engine{' and to the int8 engine' if cname == 'int16' else ''}; "
                 f"{expected[0]} K1 ({split[0]} wgmma, {split[1]} halo, {split[2]} mma.sync, {split[3]} int16) + "
-                f"{expected[1]} K2 + {expected[2]} shortcut launches")
+                f"{expected[1]} K2 ({K2_SPLIT.get(cname, (0, 0))[0]} halo) + {expected[2]} shortcut launches")
         # the engine's predict is this configuration's main path
         reset_counts(*counters)
         boxes, obj, cls = eng_gpu.predict(batches[0][1])
         main_launches[cname] = tuple(c.launches for c in counters)
-        if main_launches[cname] != expected or design_split(counters[0]) != split:
+        if (main_launches[cname] != expected or design_split(counters[0]) != split
+                or k2_split(counters[1]) != K2_SPLIT.get(cname, (0, 0))):
             raise AssertionError(f"{cname} predict launched {main_launches[cname]} (K1 by design "
-                                 f"{design_split(counters[0])}), expected {expected} ({split})")
+                                 f"{design_split(counters[0])}, K2 {k2_split(counters[1])}), expected {expected} "
+                                 f"({split}, {K2_SPLIT.get(cname, (0, 0))})")
         if not (np.isfinite(boxes).all() and np.isfinite(cls).all()
                 and (obj >= 0).all() and (obj <= 1).all()):
             raise AssertionError(f"{cname} predict: non-finite boxes or objectness outside [0,1]")
@@ -1920,14 +2008,15 @@ def count_launches(counters, what: str, expected: tuple[int, ...]) -> tuple[int,
     return got
 
 
-def run_capstone(args: list[str], workdir: str) -> dict:
+def run_capstone(args: list[str], workdir: str, say=log) -> dict:
     """tools/accuracy_capstone.py on the card with ``args``, its record in
-    ``workdir``: every printed loss finite, the record's key sets the JAX
-    script's.  Returns the record and the training's peak memory."""
+    ``workdir``, its lines through ``say``: every printed loss finite, the
+    record's key sets the JAX script's.  Returns the record and the
+    training's peak memory."""
     from yolo_quantization_tpu_torch.tools import accuracy_capstone
 
     out, info = accuracy_capstone.main(args + [f"--out-dir={workdir}", "--tag=smoke"],
-                                       log=lambda m: log(f"    {m}"))
+                                       log=lambda m: say(f"    {m}"))
     if not np.isfinite([v for _, v in info["losses"]]).all():
         raise AssertionError(f"capstone {args}: a non-finite loss among the printed {info['losses']}")
     want = record_key_sets("FLOATBASE_V3_r05.json" if "--float-baseline" in args else "ACCURACY_V2_r05.json")
@@ -1950,19 +2039,67 @@ def phase_accuracy_loop(counters, card: str) -> tuple[int, ...]:
     return got
 
 
-def phase_flagship_capstone(counters, card: str, workdir: str) -> tuple[int, ...]:
-    """Phase 20 (b): the capstone at the flagship's configuration
+def _capstone_worker(args: list[str], workdir: str, results) -> None:
+    """Phase 20 (b)'s run, in a process of its own: the record, its
+    (K1, K2, shortcut) launches, its wall time and its printed lines go
+    back through ``results``."""
+    lines, t0 = [], time.perf_counter()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut
+
+        counters = (cuda_qconv, cuda_s2d, cuda_shortcut)
+        reset_counts(*counters)
+        out = run_capstone(args, workdir, say=lines.append)
+        results.put(("ok", out, tuple(c.launches for c in counters), time.perf_counter() - t0, lines))
+    except BaseException:
+        results.put(("failed", traceback.format_exc(), None, time.perf_counter() - t0, lines))
+        raise
+
+
+def start_flagship_capstone(workdir: str):
+    """Phase 20 (b), started in a spawned (daemonic: it ends with the
+    script) process as soon as the kernels are built, so that its ~150 s of
+    training overlap phases 3-8, 12-14 (correctness and gates, no timings);
+    ``finish_flagship_capstone`` collects it before the timed phases."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_capstone_worker, args=([str(CAPSTONE_STEPS), "32"], workdir, results),
+                       daemon=True)
+    proc.start()
+    return proc, results
+
+
+def finish_flagship_capstone(handle, card: str) -> tuple[int, ...]:
+    """Phase 20 (b)'s result: the capstone at the flagship's configuration
     (yolov3-tiny, relu6, 416, 5 classes, batch 32, multiscale, 200 eval
     images) for CAPSTONE_STEPS steps; both halves of its contract must
     hold."""
-    reset_counts(*counters)
-    t0 = time.perf_counter()
-    out = run_capstone([str(CAPSTONE_STEPS), "32"], workdir)
-    got = count_launches(counters, "the flagship capstone's integer row", (13 * 8, 0, 0))  # 8 batches of 25
+    proc, results = handle
+    while True:
+        try:
+            status, out, got, seconds, lines = results.get(timeout=5)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                raise AssertionError(f"the flagship capstone's process ended (exit code {proc.exitcode}) "
+                                     "without a result")
+    proc.join(timeout=60)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    for line in lines:
+        log(line)
+    if status != "ok":
+        raise AssertionError(f"the flagship capstone failed in its process:\n{out}")
+    if got != (13 * 8, 0, 0):  # 8 batches of 25
+        raise AssertionError(f"the flagship capstone's integer row launched (K1, K2, shortcut) {got}, "
+                             f"expected {(13 * 8, 0, 0)}")
     log(f"  (b) capstone yolov3-tiny relu6 416, {CAPSTONE_STEPS} steps, batch 32, multiscale: float F1 "
         f"{out['float']['f1']}, QAT-sim {out['qat_sim']['f1']}, integer {out['int']['f1']}; gaps "
-        f"{out['f1_gap']} / {out['f1_gap_vs_qat_sim']}; train_seconds {out['train_seconds']}, peak "
-        f"{out['peak_mib']:.1f} MiB; K1 launches {got[0]}; {time.perf_counter() - t0:.1f} s [{card}]")
+        f"{out['f1_gap']} / {out['f1_gap_vs_qat_sim']}; train_seconds {out['train_seconds']} (beside phases "
+        f"3-14), peak {out['peak_mib']:.1f} MiB; K1 launches {got[0]}; {seconds:.1f} s in its process [{card}]")
     if not (out["within_half_point"] and out["int_within_half_of_qat_sim"]):
         raise AssertionError(f"the flagship capstone's contract failed: {json.dumps(out)}")
     return got
@@ -1985,12 +2122,11 @@ def phase_capstone_variants(counters, card: str, workdir: str) -> tuple[int, ...
     return tuple(int(v) for v in total)
 
 
-def phase_accuracy_capstone(counters, card: str, workdir: str) -> tuple[int, ...]:
-    """Phase 20: (a), (b) and (c).  Returns the (K1, K2, shortcut) launches
-    of the phase."""
-    total = np.zeros(3, np.int64)
+def phase_accuracy_capstone(counters, card: str, workdir: str, flagship: tuple[int, ...]) -> tuple[int, ...]:
+    """Phase 20: (a) and (c), beside (b)'s launches ``flagship``.  Returns
+    the (K1, K2, shortcut) launches of the phase."""
+    total = np.array(flagship, np.int64)
     total += phase_accuracy_loop(counters, card)
-    total += phase_flagship_capstone(counters, card, workdir)
     total += phase_capstone_variants(counters, card, workdir)
     log(f"  phase 20: (K1, K2, shortcut) launches {tuple(int(v) for v in total)}")
     return tuple(int(v) for v in total)
@@ -2009,21 +2145,32 @@ def main(argv: list[str]) -> int:
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
     t_start = time.perf_counter()
+
+    def phase(title: str) -> None:  # a phase's header, with the script's elapsed time
+        log(f"{title} [{time.perf_counter() - t_start:.1f} s]")
+
     # the reference comparisons are integer or float64; state the float32 defaults anyway
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(min(8, os.cpu_count() or 1))
 
-    log("phase 1: card")
+    phase("phase 1: card")
     card = timings.card_identity()
     kind = torch.cuda.get_device_name(0)
     log(f"  nvidia-smi: {card}; torch: {kind}; devices {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    log("phase 2: build")
+    phase("phase 2: build (phase 10, which launches no kernel of the repo, runs meanwhile)")
     libs = _build.LIBRARIES
     t0 = time.perf_counter()
-    _build.build_all(libs)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.build_all, libs)
+        phase("phase 10: QAT forward and backward, GPU vs CPU")
+        phase_qat_parity(np.random.default_rng(10))
+        t1 = time.perf_counter()
+        phase_v2_qat_parity(np.random.default_rng(12))
+        log(f"  phase 10, yolov2-tiny part: {time.perf_counter() - t1:.1f} s")
+        building.result()
     cuda_qconv.build()
     cuda_s2d.build()
     cuda_shortcut.build()
@@ -2035,13 +2182,17 @@ def main(argv: list[str]) -> int:
         for line in _build.build_log.get(name, "").splitlines():
             if "error" in line:
                 log(f"    nvcc: {line.strip()}")
-    wgmma, halo = phase_kernel_report(libs)
+    wgmma, halo, s2d_halo = phase_kernel_report(libs)
     log(f"  {len(wgmma)} wgmma instantiations of K1, each with IGMMA and no IMMA; {len(halo)} halo "
-        "instantiations, each with IMMA and UTMALDG")
+        f"instantiations of K1 and {len(s2d_halo)} of K2, each with IMMA and UTMALDG (K2's with no IDP)")
+
+    capstone_dir = tempfile.TemporaryDirectory()
+    phase("phase 20 (b): the flagship capstone starts in its own process (its result after phase 14)")
+    capstone = start_flagship_capstone(capstone_dir.name)
 
     rng = np.random.default_rng(0)
     errors = Errors()
-    log("phase 3: K1 (qconv) vs plain version (bit for bit)")
+    phase("phase 3: K1 (qconv) vs plain version (bit for bit)")
     n1, n2, by_design = phase_k1(cuda_qconv, qconv, rng, errors)
     log(f"  {n1} stride-1 and {n2} stride-2 cases equal; runs by design {by_design}")
     # the phases this slice added draw from their own generator, so the
@@ -2053,83 +2204,86 @@ def main(argv: list[str]) -> int:
     log(f"  {n4} cases on yolov3's stride-1 shapes from Ci 64 equal; runs by design {by_design}")
     n5, n6, by_design = phase_k1(cuda_qconv, qconv, np.random.default_rng(13), errors, halo_cases())
     log(f"  {n5 + n6} cases on the halo design's edges equal; runs by design {by_design}")
-    log("phase 4: K2 (s2d_qconv) vs plain version (bit for bit)")
-    log(f"  {phase_k2(cuda_s2d, qconv, rng, errors)} cases equal")
-    log("phase 5: K3 (orientation probe) at the script's sizes vs plain version (bit for bit)")
+    phase("phase 4: K2 (s2d_qconv) vs plain version (bit for bit)")
+    runs = phase_k2(cuda_s2d, qconv, rng, errors, s2d_cases())
+    log(f"  {len(s2d_cases())} cases equal; runs by design {runs}")
+    runs = phase_k2(cuda_s2d, qconv, np.random.default_rng(17), errors, s2d_halo_cases())
+    log(f"  {len(s2d_halo_cases())} cases of the halo design (four phase kernels, its edges) equal; runs by "
+        f"design {runs}")
+    phase("phase 5: K3 (orientation probe) at the script's sizes vs plain version (bit for bit)")
     probe_results, probe_launches = phase_probe(probe, errors)
-    log("phase 5b: the integer shortcut vs plain version (bit for bit)")
+    phase("phase 5b: the integer shortcut vs plain version (bit for bit)")
     log(f"  {phase_shortcut(cuda_shortcut, shortcut, rng, errors)} cases equal")
 
     counters = (cuda_qconv, cuda_s2d, cuda_shortcut)
-    log("phase 6: engines (yolov3-tiny 416, 5 classes; yolov3 416, 80 classes) GPU vs CPU")
+    phase("phase 6: engines (yolov3-tiny 416, 5 classes; yolov3 416, 80 classes) GPU vs CPU")
     engines, main_launches = phase_engines(Engine, counters, rng)
 
-    log("phase 7: flip TTA, at_size(320), f1_rows")
+    phase("phase 7: flip TTA, at_size(320), f1_rows")
     phase_flip_size_f1(Engine, engines, rng)
 
-    log("phase 8: serving")
+    phase("phase 8: serving")
     launches = phase_serving(Server, Detection, counters, engines["flagship"], (13, 0, 0), rng,
                              [(416, 416), (300, 500), (480, 640), (120, 90), (416, 416), (333, 222),
                               (600, 400), (64, 96), (250, 250), (720, 1280)])
     v3_launches = phase_serving(Server, Detection, counters, engines["v3"], (75, 0, 23), rng,
                                 [(416, 416), (480, 640), (120, 90), (333, 222), (720, 1280), (256, 256)])
 
-    log("phase 13: yolov2-tiny and yolov2 engines (416, 20 classes) GPU vs CPU; yolov1-tiny and "
+    phase("phase 13: yolov2-tiny and yolov2 engines (416, 20 classes) GPU vs CPU; yolov1-tiny and "
         "darknet19 float programs")
     t0 = time.perf_counter()
     engines.update(phase_v2_engines(Engine, counters, rng_v2))
     phase_float_programs(Engine, rng_v2)
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
-    log("phase 13b: the darknet deployment path (.cfg text + .weights -> convert -> Engine -> Server)")
+    phase("phase 13b: the darknet deployment path (.cfg text + .weights -> convert -> Engine -> Server)")
     t0 = time.perf_counter()
     v2_launches = phase_darknet_path(Engine, Server, Detection, counters, rng_v2)
     log(f"  phase 13b: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 9: timings")
-    k1, k2, k3, sc = timings.time_all(engines, probe_results, card, rng)
+    phase("phase 12: the synthetic accuracy gate through the port (QAT -> convert -> K1)")
+    phase_accuracy_gate(Engine, counters)
+    phase("phase 14: the yolov2-tiny region gate through the port (QAT -> convert -> K1)")
+    t0 = time.perf_counter()
+    phase_v2_gate(Engine, counters)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    phase("phase 20 (b): the flagship capstone's result (the timed phases follow)")
+    flagship_capstone = finish_flagship_capstone(capstone, card)
+    capstone_dir.cleanup()
+
+    phase("phase 9: timings")
+    k1, k2, k3, sc = timings.time_all(engines, probe_results, card, rng, v3_batches=(16,))
     timings.time_k1_v2(cuda_qconv, qconv, rng_v2, card)
 
-    log("phase 10: QAT forward and backward, GPU vs CPU")
-    phase_qat_parity(rng)
-    t0 = time.perf_counter()
-    phase_v2_qat_parity(rng_v2)
-    log(f"  phase 10, yolov2-tiny part: {time.perf_counter() - t0:.1f} s")
-    log("phase 11: the Trainer (yolov3-tiny 416 batch 16; yolov3 416 batch 8; yolov2-tiny 416 batch 16)")
+    phase("phase 11: the Trainer (yolov3-tiny 416 batch 16; yolov3 416 batch 8; yolov2-tiny 416 batch 16)")
     phase_trainer(card)
     t0 = time.perf_counter()
     phase_v2_trainer(card)
     log(f"  phase 11, yolov2-tiny part: {time.perf_counter() - t0:.1f} s")
-    log("phase 12: the synthetic accuracy gate through the port (QAT -> convert -> K1)")
-    phase_accuracy_gate(Engine, counters)
-    log("phase 14: the yolov2-tiny region gate through the port (QAT -> convert -> K1)")
-    t0 = time.perf_counter()
-    phase_v2_gate(Engine, counters)
-    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
-    log("phase 15: the command line on the card (yolov3-tiny 416, 5 classes, 48 images)")
+    phase("phase 15: the command line on the card (yolov3-tiny 416, 5 classes, 48 images)")
     cli_launches = phase_cli(counters, card)
     from yolo_quantization_tpu_torch.tools import parallel_check, wordtree_check
 
-    log("phase 16: parallelism (one-rank NCCL DDP/FSDP2, two gloo ranks on the card, TP)")
+    phase("phase 16: parallelism (one-rank NCCL DDP/FSDP2, two gloo ranks on the card, TP)")
     t0 = time.perf_counter()
     tp_launches = parallel_check.run(card)["launches"]
     log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
-    log("phase 17: the WordTree detector, classifier and segmenter, card vs CPU")
+    phase("phase 17: the WordTree detector, classifier and segmenter, card vs CPU")
     t0 = time.perf_counter()
     tree_launches = wordtree_check.run(card)["launches"]
     log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
-        log("phase 18: the C-parity harness (parity_check static and dynamic, crossf1 short)")
+        phase("phase 18: the C-parity harness (parity_check static and dynamic, crossf1 short)")
         t0 = time.perf_counter()
         parity_launches = phase_parity(counters, card, workdir)
         log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
-    log("phase 19: the benchmarks (bench, bench --v3, bench_serving, bench_train) and the dry run")
+    phase("phase 19: the benchmarks (bench, bench --v3, bench_serving, bench_train) and the dry run")
     t0 = time.perf_counter()
     bench_launches = phase_bench(counters, card)
     log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
-        log("phase 20: the synthetic accuracy loop and the accuracy capstone (QAT -> convert -> K1 at 416)")
+        phase("phase 20: the synthetic accuracy loop and the capstone's other paths (QAT -> convert -> K1)")
         t0 = time.perf_counter()
-        capstone_launches = phase_accuracy_capstone(counters, card, workdir)
+        capstone_launches = phase_accuracy_capstone(counters, card, workdir, flagship_capstone)
         log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
     log(f"  main-path K1 launches: yolov3-tiny server {launches[0]}, yolov3 server {v3_launches[0]}, "
         f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}, "

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_native import jax_binding_whole
 from test_torch_qat import jax_layer, jax_mode
 from yolo_quantization_tpu.eval import detect as jdetect
 from yolo_quantization_tpu.eval.f1 import f1_rows as jf1_rows
@@ -54,6 +55,13 @@ from yolo_quantization_tpu_torch.tools import qat_check as Q
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding():
+    """The JAX binding holds the whole native library (``test_torch_native``)."""
+    with jax_binding_whole():
+        yield
 DECODE_TOL = dict(rtol=1e-6, atol=1e-7)
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_v2.py's FloatEngine-vs-JAX tolerance
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
+from test_torch_native import jax_binding_whole
 from yolo_quantization_tpu.core.tree import parse_tree as jparse
 from yolo_quantization_tpu.nn import graph as JG
 from yolo_quantization_tpu.train import classify as jclassify
@@ -32,6 +33,13 @@ from yolo_quantization_tpu_torch.train.classify import (
 from yolo_quantization_tpu_torch.train.segment import SegmentationDataset, SegmenterTrainer, mask_path_for
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding():
+    """The JAX binding holds the whole native library (``test_torch_native``)."""
+    with jax_binding_whole():
+        yield
 
 LOSS_REL = 1e-5
 PARAM_TOL = dict(rtol=1e-4, atol=1e-6)

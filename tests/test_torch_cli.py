@@ -15,12 +15,20 @@ from pathlib import Path
 import pytest
 import torch
 
+from test_torch_native import jax_binding_whole
 from test_torch_valid import assert_same_rows, make_dataset, read_rows
 from yolo_quantization_tpu_torch.cli.main import build_parser, main
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding():
+    """The JAX binding holds the whole native library (``test_torch_native``)."""
+    with jax_binding_whole():
+        yield
 MODEL = ["--model", "yolov3-tiny", "--size", "64", "--classes", "5"]
 CPU = [*MODEL, "--device", "cpu"]
 

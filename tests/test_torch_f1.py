@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_native import jax_binding_whole
 from yolo_quantization_tpu.data import voc as jvoc
 from yolo_quantization_tpu.eval import detect as jdetect
 from yolo_quantization_tpu.eval import f1 as jf1
@@ -16,6 +17,13 @@ from yolo_quantization_tpu_torch.eval import detect as tdetect
 from yolo_quantization_tpu_torch.eval import f1 as tf1
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding():
+    """The JAX binding holds the whole native library (``test_torch_native``)."""
+    with jax_binding_whole():
+        yield
 
 
 def _cache(seed: int, images: int = 6, dets: int = 60):

@@ -2,9 +2,15 @@
 against the port's numpy version, with the tolerances of
 ``tests/test_native.py``, and bit for bit against the JAX package's binding
 of the same sources on the same inputs.  Skips only where there is no C++
-toolchain, as the JAX package's file does."""
+toolchain, as the JAX package's file does.
 
+``jax_binding_whole`` points the JAX binding at a whole library for a
+module's tests; every port test file that compares with that binding,
+directly or through the JAX package's data and evaluation code, uses it."""
+
+import contextlib
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -25,12 +31,56 @@ pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable (no C++ toolchain)")
 
 
+@contextlib.contextmanager
+def jax_binding_whole():
+    """The JAX package's binding holding the whole native library, image
+    entry points included wherever the port's library has them, until the
+    block ends; then its own state again.
+
+    The binding builds ``native/libyoloq_host.so`` in place with ``make``
+    when the file is missing, and the Makefile's libjpeg probe writes and
+    deletes one shared file.  Under several test workers a process can load
+    a half-written library (the binding then takes its numpy and PIL
+    fallbacks for good) or one whose probe lost the race (no image entry
+    points), and a comparison with "the JAX binding" compares with
+    something else.  So the binding is given a private copy of the port's
+    library: the same sources and the Makefile's flags, built atomically.
+    The copy has a name of its own: ``dlopen`` returns the handle it holds
+    for a path or a file already loaded.  Where there is no toolchain the
+    binding is left as it is (the tests skip)."""
+    lib = native.load_library()
+    if lib is None:
+        yield
+        return
+    src = Path(lib._name)
+    dst = ROOT / "build" / "jax_host" / f"{src.stem}.{os.getpid()}.so"
+    if not dst.exists():
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        tmp = dst.with_suffix(".tmp")
+        shutil.copyfile(src, tmp)
+        os.replace(tmp, dst)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB_PATH", str(dst))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_lib_failed", False)
+        got = jnative.load_library(build=False)
+        if got is None or got._has_image != lib._has_image:
+            pytest.fail(f"the JAX binding did not load {dst} whole (loaded: {got is not None}, image "
+                        f"entry points: {got is not None and got._has_image}, the port's: {lib._has_image})")
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding():
+    with jax_binding_whole():
+        yield
+
+
 @pytest.fixture
 def image_support():
     if not native.has_image():
         pytest.skip("library built without libjpeg/libpng")
-    if not jnative.available() or not jnative.load_library()._has_image:
-        pytest.skip("the JAX package's library lacks image support")
+    assert jnative.load_library()._has_image, "the JAX binding lacks the image entry points"
 
 
 def make_dets(rng, m=50, classes=5):

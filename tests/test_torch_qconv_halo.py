@@ -1,9 +1,10 @@
-"""K1's halo design (``csrc/qconv.cu::qconv_halo_kernel``): its index
-arithmetic emulated in numpy (the tiles and their halos, TMA's fetch, the
-border's zero-point fill, the (row, tap) -> halo offsets that ``ldmatrix``
-reads, the 3-channel rows built with word loads and byte permutes) and held
-against the JAX package's integer conv and maxpool; the route rule against
-the models' layers; on the card the design against the plain version."""
+"""K1's halo design (``csrc/halo.cuh::halo_kernel``, launched by
+``csrc/qconv.cu``): its index arithmetic emulated in numpy (the tiles and
+their halos, TMA's fetch, the border's zero-point fill, the (row, tap) ->
+halo offsets that ``ldmatrix`` reads, the 3-channel rows built with word
+loads and byte permutes) and held against the JAX package's integer conv and
+maxpool; the route rule against the models' layers; on the card the design
+against the plain version."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@ import pytest
 import torch
 from PIL import Image
 
+from test_torch_native import jax_binding_whole
 from yolo_quantization_tpu.eval import valid as jvalid
 from yolo_quantization_tpu.infer import serialize as jserialize
 from yolo_quantization_tpu.infer.engine import Engine as JEngine
@@ -31,6 +32,13 @@ from yolo_quantization_tpu_torch.infer import serialize as tserialize
 from yolo_quantization_tpu_torch.infer.engine import Engine
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding():
+    """The JAX binding holds the whole native library (``test_torch_native``)."""
+    with jax_binding_whole():
+        yield
 
 SIZE = 64
 NAMES = [f"c{i}" for i in range(5)]

@@ -5,13 +5,47 @@
 // 2x2 space-to-depth input xs (N, H/2, W/2, 4C), slot (qy*2+qx)*C + c
 // holding pixel (2i+qy, 2j+qx, c), whose blocks are padded by 1 with the
 // input zero point; the block kernel w_s2d (3, 3, 4C, 4O) (any one: the
-// kernel does not assume infer/convert.py::_s2d_weights' structural zeros),
+// mma.sync design does not assume infer/convert.py::_s2d_weights'
+// structural zeros, the halo design takes the kernels that have them),
 // output slot (py*2+px)*O + o; then the max over the 4 output-phase groups
 // on the int32 accumulators (the following 2x2/s2 maxpool of the original
 // graph, exact because the epilogue is monotone); then the epilogue of
 // common.cuh, emitting shifted int8.
 //
-// An implicit GEMM on the int8 tensor cores, built like qconv.cu's K1:
+// Two designs, chosen by the block kernel (ops/cuda_s2d.py::pack_weights
+// decides on the host, once per weight tensor, and ::design mirrors the
+// rule below):
+//
+// halo (a structured w_s2d: every entry outside _s2d_weights' pattern zero;
+// C 3 with W % 16 == 0, or C 16, 32, 48; O 16, 32, 64): phase (py, px) of
+// block (by, bx) is then an ordinary 3x3 pad-1 conv at pixel (2 by + py,
+// 2 bx + px) with that phase's own 3x3xC kernel, 36 C O MACs a block where
+// the dense GEMM below does 144 C O (its structural zeros, 4x the work, made
+// layers 2 and 4 operation-bound).  That is K1's pooled halo tile
+// (halo.cuh::halo_kernel) with one B slice per phase: each tile's input halo
+// arrives once by TMA (Ci 3 in the stem row layout), the image's zero-point
+// code is written where TMA filled 0, A is read from the halo in place, the
+// phase max is taken on the int32 accumulators in registers, then the
+// epilogue and 16-byte stores.  Where the four phase kernels are equal (every
+// engine program: _s2d_weights of one 3x3 kernel) the tile shares one slice
+// (PHASES 1), which is K1's pooled kernel itself.  Four distinct slices
+// (PHASES 4): K1's pooled tile mixes phases inside an m16 fragment (rows g
+// and 8 + g of one tile are pixels dx = g / 4 and 1 - g / 4), so each tile
+// is multiplied by its two slices with the other dx's rows zeroed in the A
+// fragment (twice the MMAs, the same loads).  The alternative, rows
+// regrouped so that each m16 tile is one phase, does the MACs once but puts
+// the 8 rows of an ldmatrix phase on pixels an even number apart, 2-way bank
+// conflicts on every A read for any pitch, and needs four m16 tiles a warp
+// (Co 64 has two).  Measured on an H100 (700 W, tools/kernel_timings.py,
+// the flagship's layers 0 / 2 / 4 at batch 16, PERF.md §6): the shared
+// slice, the time the regrouped rows could at best reach, takes 0.0364 /
+// 0.0225 / 0.0195 ms, the same kernel as four per-fragment slices 0.0394 /
+// 0.0311 / 0.0399 ms (1.08 / 1.38 / 2.05x).  The per-fragment slices stay:
+// four distinct phase kernels come from no program the engine converts,
+// and the regrouped tile was not built.
+//
+// mma.sync (any other w_s2d, or a shape the halo design does not take): an
+// implicit GEMM on the int8 tensor cores, built like qconv.cu's K1:
 //   - GEMM view: M = output blocks (N*H/2*W/2), N = 4*O phase columns, K = 9
 //     taps x 4C slots in w_s2d's flatten order (tap-major, slot-minor),
 //     padded to 32.  In the original image a row's K is the 6x6xC input
@@ -52,10 +86,13 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "halo.cuh"
 
 namespace {
 
 using yq::Epilogue;
+
+constexpr int kRouteMma = 1, kRouteHalo = 4;  // reported to the caller, as qconv.cu's codes
 
 constexpr int kStages = 4;
 constexpr int kFar = INT_MIN / 4;  // a row past the end: every tap lies outside the map
@@ -357,16 +394,65 @@ cudaError_t launch_tile(const Params& p, cudaStream_t s) {
                                  : launch_mma<64, 64, 2, 2, kVec>(p, dev, s);
 }
 
+// ---- the halo design: structured block kernels ----
+
+// What halo.cuh::halo_kernel reads of a conv: here the stem's 3x3 pad-1
+// conv at every output phase, pooled over the four, symmetric, with one or
+// four B slices (the kernel's PHASES).
+struct HaloConv {
+  const int8_t* x;          // (N, H, W, C) shifted int8 codes, NHWC
+  const int8_t* w;          // (PHASES, O, K_pad) phase slices, K = (u, v, c) of the phase's 3x3 kernel
+  const int32_t* w_zp;      // null: the stem's weights are symmetric
+  const int32_t* x_zp_img;  // (N,) per-image input zero point, or null
+  Epilogue e;
+  uint8_t* out;             // (N, H/2, W/2, O) shifted int8 codes
+  int h, w_in, ci, co, pad;
+  int h_out, w_out;         // the conv's map before the pool: H, W
+  int k_pad;                // 9 C padded to 32
+  int x_zp;
+};
+
+// The structured convs the halo design takes, as qconv.cu::halo_takes for
+// K1's pooled 3x3: O 16, 32 or 64; C 16, 32 or 48, or C 3 where a row of W
+// * 3 bytes meets TMA's 16-byte stride.  Mirrored by
+// ops/cuda_s2d.py::halo_capable.
+__host__ __forceinline__ bool halo_takes(int c, int o, int w_in) {
+  return (o == 16 || o == 32 || o == 64) && (c == 3 ? w_in % 16 == 0 : c % 16 == 0 && c <= 48);
+}
+
+template <bool STEM, int PHASES>
+cudaError_t launch_halo_nt(const HaloConv& p, int n, int dev, int sms, cudaStream_t s) {
+  if (p.co == 16) return yq::launch_halo<1, true, STEM, 2, false, PHASES>(p, n, dev, sms, s);
+  if (p.co == 32) return yq::launch_halo<1, true, STEM, 4, false, PHASES>(p, n, dev, sms, s);
+  return yq::launch_halo<1, true, STEM, 8, false, PHASES>(p, n, dev, sms, s);
+}
+
+cudaError_t launch_halo_tile(const HaloConv& p, int n, int phases, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  const cudaError_t err = yq::device_sms(dev, sms);
+  if (err != cudaSuccess) return err;
+  const bool stem = p.ci == 3;
+  if (phases == 1) {
+    return stem ? launch_halo_nt<true, 1>(p, n, dev, sms, s) : launch_halo_nt<false, 1>(p, n, dev, sms, s);
+  }
+  return stem ? launch_halo_nt<true, 4>(p, n, dev, sms, s) : launch_halo_nt<false, 4>(p, n, dev, sms, s);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes.  Shapes are validated by the Python wrapper;
-// returns the launch's cudaError_t (0 on success).  w is pack_weights'
-// (4 * O padded to 16, 36 * C padded to 32) layout.
+// returns the launch's cudaError_t (0 on success).  phases 0: w is
+// pack_weights' dense layout (4 * O padded to 16, 36 * C padded to 32) and
+// the mma.sync design runs; phases 1 or 4: w is the structured layout
+// (phases, O, 9 * C padded to 32) and the halo design runs, on a conv that
+// halo_takes (else cudaErrorInvalidValue).  *route (if not null) receives
+// the design launched: 1 mma.sync, 4 halo.
 extern "C" int yq_s2d_qconv(const void* x, const void* w, const void* x_zp_img,
                             const void* bias, const void* m, void* out, int n, int h,
                             int w_in, int c, int o, int x_zp, int out_zp, int act,
-                            int exact_leaky, int bm_per_image, void* stream) {
-  if (n < 1 || n > 65535 || c < 1 || o < 1 || h < 2 || w_in < 2 || (h & 1) || (w_in & 1)) {
+                            int exact_leaky, int bm_per_image, int phases, int* route, void* stream) {
+  if (n < 1 || n > 65535 || c < 1 || o < 1 || h < 2 || w_in < 2 || (h & 1) || (w_in & 1) ||
+      (phases != 0 && phases != 1 && phases != 4)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long rows = (long long)n * (h / 2) * (w_in / 2);
@@ -374,17 +460,41 @@ extern "C" int yq_s2d_qconv(const void* x, const void* w, const void* x_zp_img,
       16LL * o > INT_MAX / 2) {
     return (int)cudaErrorInvalidValue;
   }
+  Epilogue e;
+  e.bias = static_cast<const int32_t*>(bias);
+  e.m = static_cast<const float*>(m);
+  e.bm_stride = bm_per_image ? o : 0;
+  e.act = act;
+  e.exact_leaky = exact_leaky;
+  e.out_i8 = 1;
+  e.out_zp = out_zp;
+  if (phases) {
+    if (route) *route = kRouteHalo;
+    if (!halo_takes(c, o, w_in)) return (int)cudaErrorInvalidValue;
+    HaloConv hp;
+    hp.x = static_cast<const int8_t*>(x);
+    hp.w = static_cast<const int8_t*>(w);
+    hp.w_zp = nullptr;
+    hp.x_zp_img = static_cast<const int32_t*>(x_zp_img);
+    hp.e = e;
+    hp.out = static_cast<uint8_t*>(out);
+    hp.h = h;
+    hp.w_in = w_in;
+    hp.ci = c;
+    hp.co = o;
+    hp.pad = 1;
+    hp.h_out = h;
+    hp.w_out = w_in;
+    hp.k_pad = (9 * c + 31) / 32 * 32;
+    hp.x_zp = x_zp;
+    return (int)launch_halo_tile(hp, n, phases, static_cast<cudaStream_t>(stream));
+  }
+  if (route) *route = kRouteMma;
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
   p.x_zp_img = static_cast<const int32_t*>(x_zp_img);
-  p.e.bias = static_cast<const int32_t*>(bias);
-  p.e.m = static_cast<const float*>(m);
-  p.e.bm_stride = bm_per_image ? o : 0;
-  p.e.act = act;
-  p.e.exact_leaky = exact_leaky;
-  p.e.out_i8 = 1;
-  p.e.out_zp = out_zp;
+  p.e = e;
   p.out = static_cast<int8_t*>(out);
   p.h = h;
   p.w_in = w_in;

@@ -11,7 +11,8 @@ the other forced by the wrapper's private ``_design``), and the halo
 design's convs on the four models beside their bounds (``time_k1_halo``).  Per-layer K1 vs plain (and
 ``torch._int_mm``,
 graph-timed, on the 1x1 layers its shape rules allow) on the flagship's 13
-convs and on yolov3's five stride-2 convs, K2 vs K1's fused stem per layer,
+convs and on yolov3's five stride-2 convs, K2 by design vs K1's fused stem
+per layer (``time_k2_stem``),
 the shortcut kernel on one shortcut of each yolov3 stage vs its plain
 chain, device forwards of the engines at batch 1, 16 and 64 (eager, CUDA
 events; yolov3, yolov2-tiny and yolov2 at 16 and 64), K1 on the yolov2
@@ -520,44 +521,80 @@ def time_k1_v3(cuda_qconv, rng, card, batches=(16, 64)):
             f"(every conv on mma.sync {tot.earlier_ms:.4f} ms), bound {tot.bound_ms:.4f} ms [{card}]")
 
 
+def k2_bounds(n, h, w, ci, co, slices):
+    """K2's two bounds on one stem layer, each (ms, "bytes" or
+    "operations"): with the structural zeros counted (any w_s2d: the block
+    kernel's 144·C·O MACs a block and its 9·16·C·O bytes, the yardstick of
+    the mma.sync design), and structured (the work a structured w_s2d
+    needs, held against the halo design: 36·C·O MACs a block, and the
+    ``slices`` phase kernels of 9·C·O bytes it reads, 1 where the four
+    phases share one).  Both count the input once, bias and m, and the
+    pooled output."""
+    io = n * h * w * ci + 8 * co + n * (h // 2) * (w // 2) * co
+    blocks = n * (h // 2) * (w // 2)
+    dense = bound_ms(io + 9 * 16 * ci * co, 2 * blocks * 144 * ci * co)
+    structured = bound_ms(io + slices * 9 * ci * co, 2 * blocks * 36 * ci * co)
+    return dense, structured
+
+
 def time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card):
+    """K2 on the flagship's s2d layers 0, 2, 4 at batch 1 and 16 (the
+    engine's weights: _s2d_weights of one 3x3 kernel), graph-timed in
+    turns: K1's fused stage, the halo design (one shared slice), the halo
+    design with the same kernel as four slices (the per-fragment cost of
+    four distinct phase kernels), mma.sync forced, then back; beside both
+    bounds (``k2_bounds``) and the plain time.  Returns the Totals of the
+    routed design at batch 16, with the structured bound."""
     from yolo_quantization_tpu_torch.infer.convert import _s2d_weights
 
     tot = Totals()
-    log(f"  s2d stem (K2) vs K1's fused stem at batch 16, graph-timed [{card}]:")
-    for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
-        if i not in S2D_LAYERS:
-            continue
-        x, wt, bias, m = random_layer(rng, 16, h, w, ci, co, 3)
-        xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
-        b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
-        ws_t = torch.from_numpy(_s2d_weights(wt)).cuda()
-        wp1, wp2 = cuda_qconv.pack_weights(wt_t), cuda_s2d.pack_weights(ws_t)
+    log(f"  s2d stem (K2) by design vs K1's fused stem, graph-timed in turns [{card}]:")
+    for n in (1, 16):
+        sums = {}
+        for (i, h, w, ci, co, k, pad, act, fused) in flagship_layers():
+            if i not in S2D_LAYERS:
+                continue
+            x, wt, bias, m = random_layer(rng, n, h, w, ci, co, 3)
+            xt, wt_t = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+            b_t, m_t = torch.from_numpy(bias).cuda(), torch.from_numpy(m).cuda()
+            ws_t = torch.from_numpy(_s2d_weights(wt)).cuda()
+            wp1, halo1 = cuda_qconv.pack_weights(wt_t), cuda_s2d.pack_weights(ws_t)
+            halo4, dense = cuda_s2d.pack_phases(ws_t, share=False), cuda_s2d.pack_dense(ws_t)
 
-        def k2():
-            cuda_s2d.s2d_conv_phase_max_cuda(xt, ws_t, b_t, m_t, 3, act=act, w_packed=wp2)
+            def k2(packed, design=None):
+                cuda_s2d.s2d_conv_phase_max_cuda(xt, ws_t, b_t, m_t, 3, act=act, w_packed=packed, _design=design)
 
-        def k1():
-            cuda_qconv.quantized_conv2d_cuda(xt, wt_t, b_t, m_t, 3, pad=1, act=act,
-                                             fuse_pool=True, out_i8=True, w_packed=wp1)
-
-        def plain():
-            qconv.s2d_conv_phase_max(qconv.space_to_depth(xt), ws_t, b_t, m_t, 3, 0, act=act)
-
-        # K1 and K2 in turns: k1, k2, k2, k1
-        t1a, t2a, t2b, t1b = (graph_time_ms(f) for f in (k1, k2, k2, k1))
-        k1_ms, k2_ms = (t1a + t1b) / 2, (t2a + t2b) / 2
-        e_ms = cuda_time_ms(k2, 20)
-        p_ms = cuda_time_ms(plain, 5, warmup=1)
-        mac = 16 * (h // 2) * (w // 2) * 4 * co * 9 * 4 * ci
-        bound = bound_ms(16 * h * w * ci + 9 * 16 * ci * co + 8 * co + 16 * (h // 2) * (w // 2) * co,
-                         2 * mac)
-        tot.add(k2_ms, e_ms, p_ms, bound, None)
-        log(f"    layer {i} {h}x{w}x{ci}->{co} +pool: K2 {k2_ms:.4f} ms ({mac / 1e9 / k2_ms:.2f} TMAC/s "
-            f"incl. zeros), K1 fused {k1_ms:.4f} ms, K2/K1 {k2_ms / k1_ms:.2f}x, K2 eager "
-            f"{e_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
-    log(f"  s2d stem layers 0/2/4 at batch 16: K2 {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms "
-        f"[{card}]")
+            calls = {
+                "K1 fused": lambda: cuda_qconv.quantized_conv2d_cuda(
+                    xt, wt_t, b_t, m_t, 3, pad=1, act=act, fuse_pool=True, out_i8=True, w_packed=wp1),
+                "halo": lambda: k2(halo1), "halo, 4 slices": lambda: k2(halo4),
+                "mma.sync": lambda: k2(dense, "mma.sync"),
+            }
+            order = list(calls) + list(calls)[::-1]
+            times = [graph_time_ms(calls[name]) for name in order]
+            ms = {name: (times[j] + times[len(order) - 1 - j]) / 2 for j, name in enumerate(calls)}
+            dense_b, struct_b = k2_bounds(n, h, w, ci, co, halo1.shape[0])
+            for name, v in ms.items():
+                sums[name] = sums.get(name, 0.0) + v
+            sums["bound zeros counted"] = sums.get("bound zeros counted", 0.0) + dense_b[0]
+            sums["bound structured"] = sums.get("bound structured", 0.0) + struct_b[0]
+            line = ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items())
+            if n == 16:
+                e_ms = cuda_time_ms(calls["halo"], 20)
+                p_ms = cuda_time_ms(
+                    lambda: qconv.s2d_conv_phase_max(qconv.space_to_depth(xt), ws_t, b_t, m_t, 3, 0, act=act),
+                    5, warmup=1)
+                tot.add(ms["halo"], e_ms, p_ms, struct_b, None)
+                line += f", halo eager {e_ms:.4f} ms, plain {p_ms:.4f} ms"
+            log(f"    layer {i} batch {n} {h}x{w}x{ci}->{co} +pool: {line}; halo at {struct_b[0] / ms['halo']:.1%} "
+                f"of the structured bound {struct_b[0]:.4f} ms ({struct_b[1]}), mma.sync at "
+                f"{dense_b[0] / ms['mma.sync']:.1%} of the zeros-counted bound {dense_b[0]:.4f} ms "
+                f"({dense_b[1]}); halo/K1 {ms['halo'] / ms['K1 fused']:.2f}x, mma.sync/halo "
+                f"{ms['mma.sync'] / ms['halo']:.2f}x [{card}]")
+        log(f"  s2d stem layers 0/2/4 at batch {n}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items())
+            + f" [{card}]")
+    log(f"  s2d stem layers 0/2/4 at batch 16: K2 (halo) {tot.ms:.4f} ms, plain {tot.plain_ms:.4f} ms, "
+        f"structured bound {tot.bound_ms:.4f} ms [{card}]")
     return tot
 
 
@@ -619,21 +656,32 @@ def time_probe(probe, results, card):
     return tots
 
 
-def time_all(engines, probe_results, card, rng):
+def time_all(engines, probe_results, card, rng, v3_batches=(16, 64)):
     """Every timing above but ``time_k1_v2`` (timed apart, on its own
-    generator); returns the Totals of K1 (the flagship's 13
-    convs), K2, K3 ({"a", "b"}) and the shortcut kernel."""
+    generator), each step's wall time logged; yolov3's stride-1 convs at
+    ``v3_batches`` (``chip_smoke.py`` takes 16 alone, to stay inside its
+    time limit).  Returns the Totals of K1 (the flagship's 13 convs), K2,
+    K3 ({"a", "b"}) and the shortcut kernel."""
     from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut, qconv, shortcut
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
-    k1 = time_k1_layers(cuda_qconv, qconv, rng, card)
-    time_k1_halo(cuda_qconv, np.random.default_rng(5), card)
-    time_k1_stride2(cuda_qconv, qconv, rng, card)
-    time_k1_v3(cuda_qconv, np.random.default_rng(3), card)
-    k2 = time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card)
-    sc = time_shortcut(cuda_shortcut, shortcut, rng, card)
-    time_engines(engines, rng, card)
-    k3 = time_probe(probe, probe_results, card)
+    t0 = time.perf_counter()
+
+    def step(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        log(f"  [{name}: {time.perf_counter() - t:.1f} s]")
+        return out
+
+    k1 = step("K1 layers", lambda: time_k1_layers(cuda_qconv, qconv, rng, card))
+    step("K1 halo", lambda: time_k1_halo(cuda_qconv, np.random.default_rng(5), card))
+    step("K1 stride 2", lambda: time_k1_stride2(cuda_qconv, qconv, rng, card))
+    step("K1 yolov3", lambda: time_k1_v3(cuda_qconv, np.random.default_rng(3), card, v3_batches))
+    k2 = step("K2", lambda: time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card))
+    sc = step("shortcut", lambda: time_shortcut(cuda_shortcut, shortcut, rng, card))
+    step("engines", lambda: time_engines(engines, rng, card))
+    k3 = step("K3", lambda: time_probe(probe, probe_results, card))
+    log(f"  [timings: {time.perf_counter() - t0:.1f} s]")
     return k1, k2, k3, sc
 
 

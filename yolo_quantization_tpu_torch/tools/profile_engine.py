@@ -9,13 +9,16 @@ For the flagship, ``use_s2d`` and C-parity configurations (yolov3-tiny, 416,
 the wall time per forward, the summed device kernel time, the device busy
 share (kernel time over wall time of the profiled window) and the kernels
 that take the most device time, and the share of each hand-written kernel
-(K1 sums its tile instantiations, and is split by design).  Prints one JSON line per configuration
-and batch.
+(K1 and K2 sum their tile instantiations, and are split by design).  Prints
+one JSON line per configuration and batch.  ``python -m ... profile_engine
+1 16 64 256`` gives the ``s2d`` configuration's K2 by design at the four
+batches.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -29,12 +32,15 @@ from yolo_quantization_tpu_torch.models.presets import flagship_program, parity_
 from yolo_quantization_tpu_torch.tools.kernel_timings import card_identity
 
 ITERS = 5
-# the hand-written kernels by the names of their __global__ functions; K1
-# whole, then by design
-KERNELS = {"K1 qconv": ("qconv_wgmma_kernel", "qconv_halo_kernel", "qconv_mma_kernel", "qconv_i16_kernel"),
-           "K1 wgmma": ("qconv_wgmma_kernel",), "K1 halo": ("qconv_halo_kernel",),
-           "K1 mma.sync": ("qconv_mma_kernel",),
-           "K2 s2d_qconv": ("s2d_mma_kernel",), "shortcut": ("shortcut_kernel",)}
+# the hand-written kernels by the names of their __global__ functions (a
+# pattern searched in the profiler's name); K1 and K2 whole, then by
+# design.  The halo design's kernel is halo.cuh's template for both, told
+# apart by its parameter type (qconv.cu's Params, s2d_qconv.cu's HaloConv).
+_K1_HALO, _K2_HALO = r"halo_kernel.*Params", r"halo_kernel.*HaloConv"
+KERNELS = {"K1 qconv": rf"qconv_(wgmma|mma|i16)_kernel|{_K1_HALO}",
+           "K1 wgmma": r"qconv_wgmma_kernel", "K1 halo": _K1_HALO, "K1 mma.sync": r"qconv_mma_kernel",
+           "K2 s2d_qconv": rf"s2d_mma_kernel|{_K2_HALO}", "K2 halo": _K2_HALO, "K2 mma.sync": r"s2d_mma_kernel",
+           "shortcut": r"shortcut_kernel"}
 
 
 def configurations(v3: bool = False):
@@ -83,15 +89,15 @@ def breakdown(program, option: dict, batch: int, top: int = 6) -> dict:
             forward(arrays, x)
         device_ms, wall_ms, events = kernel_time(lambda: forward(arrays, x), ITERS)
 
-    def share(names) -> float:
-        ms = sum(e.self_device_time_total for e in events if any(n in e.key for n in names))
+    def share(pattern) -> float:
+        ms = sum(e.self_device_time_total for e in events if re.search(pattern, e.key))
         return ms / 1e3 / ITERS / device_ms
 
     return {
         "wall_ms_per_forward": wall_ms,
         "device_ms_per_forward": device_ms,
         "busy_share": device_ms / wall_ms,
-        "kernel_shares": {name: share(names) for name, names in KERNELS.items()},
+        "kernel_shares": {name: share(pattern) for name, pattern in KERNELS.items()},
         "top_kernels": [
             {"name": e.key[:80], "share": e.self_device_time_total / 1e3 / ITERS / device_ms,
              "calls_per_forward": e.count / ITERS}
