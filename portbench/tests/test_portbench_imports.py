@@ -1,0 +1,53 @@
+"""Nothing of the benchmark imports JAX or the JAX package, and the
+reference imports nothing of the program: by the sources, and by what a
+run of a cell leaves in ``sys.modules``.  Module names are compared by
+their top-level name, whole: the port's name begins with the JAX
+package's."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+FORBIDDEN = {"jax", "jaxlib", "flax", "yolo_quantization_tpu"}
+PORT = "yolo_quantization_tpu_torch"
+
+
+def imported(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_sources(root):
+    files = sorted((root / "portbench").rglob("*.py"))
+    assert files
+    for f in files:
+        assert not imported(f) & FORBIDDEN, f
+    for f in sorted((root / "portbench" / "reference").rglob("*.py")):
+        names = imported(f)
+        assert PORT not in names, f
+        assert names <= {"__future__", "dataclasses", "numpy", "torch", "portbench"}, (f, names)
+    # the reference reaches into the benchmark only for its own modules
+    for f in sorted((root / "portbench" / "reference").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("portbench"):
+                assert node.module.startswith("portbench.reference"), f
+
+
+def test_a_run_loads_no_jax(root):
+    code = ("import sys, time, json; sys.path.insert(0, sys.argv[1]);"
+            "from pathlib import Path; from portbench import harness;"
+            "r = harness.run_cell(Path(sys.argv[1]), 'tiny416-b128-closed', 4, 0.5, True, 'cpu',"
+            " time.perf_counter(), overrides={'size': 64, 'batch': 2, 'pool': 2});"
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
+    out = subprocess.run([sys.executable, "-c", code, str(root)], capture_output=True, text=True,
+                         timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert PORT in loaded and not loaded & FORBIDDEN
