@@ -27,7 +27,8 @@ these are in models/, train/ and nn/):
   infer/serving.py   continuous-batching Server
   eval/valid.py      VOC/COCO/ImageNet result writers and VOC mAP
   utils/native.py    ctypes binding of the native host runtime (native/*.cc)
-  utils/profiling.py torch.profiler trace, step timer, JSONL metrics
+  utils/profiling.py the one profiler-range helper (span), torch.profiler
+                     trace, step timer, JSONL metrics
   data/video.py      OpenCV video read/write
   cli/               the command line (python -m yolo_quantization_tpu_torch.cli)
   parity/ctwin.py    numpy twin of the darknet C binary's uint8 arithmetic

@@ -17,7 +17,8 @@ scheme of the darknet reference):
   - ``requantize_float`` and the gemmlowp multiplier encoding.
 
 The fake-quant forwards and ``ema_update`` run inside profiler ranges
-("fake_quant", "ema_update"), which ``tools/profile_train.py`` reads.
+("fake_quant", "ema_update"; ``utils/profiling.py::span``), which
+``tools/profile_train.py`` reads.
 Every rounding sits where the reference puts it (``torch.round`` rounds half
 to even, as ``jnp.round``).  Divisions by a constant divide by a tensor on
 the operand's device: CUDA turns a division by a host scalar into a multiply
@@ -30,7 +31,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from yolo_quantization_tpu_torch.utils.profiling import span
 
 QUANT_MIN = 0
 QUANT_MAX = 255
@@ -105,7 +107,7 @@ class _FakeQuant(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, min_val, max_val):
-        with record_function("fake_quant"):
+        with span("fake_quant"):
             out, lo, hi = _nudged_grid(x, min_val, max_val)
             ctx.save_for_backward((x >= lo) & (x <= hi))
         return out
@@ -133,7 +135,7 @@ class _FakeQuantSymmetric(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        with record_function("fake_quant"):
+        with span("fake_quant"):
             absmax = torch.amax(torch.abs(x), dim=tuple(range(x.ndim - 1)))
             scale = torch.where(absmax > 0, absmax, _const(absmax, 1.0)) / _const(absmax, 127.0)
             q = torch.clamp(torch.round(x / scale), -127, 127)
@@ -157,7 +159,7 @@ class _FakeQuantLearned(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, min_val, max_val):
-        with record_function("fake_quant"):
+        with span("fake_quant"):
             out, lo, hi = _nudged_grid(x, min_val, max_val)
             ctx.save_for_backward(x < lo, x > hi)
         ctx.range_shapes = (min_val.shape, max_val.shape)
@@ -181,7 +183,7 @@ def fake_quant_learned(x: torch.Tensor, min_val: torch.Tensor, max_val: torch.Te
 def ema_update(ema_min, ema_max, batch_min, batch_max, decay: float = EMA_DECAY):
     """m <- m - (m - new) * (1 - decay); a range still at (0, 0) ("unseen")
     adopts the batch statistics directly."""
-    with record_function("ema_update"):
+    with span("ema_update"):
         fresh = (ema_min == 0.0) & (ema_max == 0.0)
         rate = float(np.float32(1.0 - decay))
         new_min = ema_min - (ema_min - batch_min) * rate

@@ -22,6 +22,15 @@ an int8 input and runs ``nn/graph.py::apply_simple_layer``.  The options
 ``fuse_pool=False`` (each planned conv+pool as the conv kernel then the
 integer pool, so every layer keeps its own output); flip TTA and
 ``at_size``.
+
+Under a profiler each stage of a request is a range of its own
+(``utils/profiling.py::span``), on the thread that runs it:
+``engine.predict_async`` (the enqueue) holds ``engine.input`` (the move to
+the device, and flip's doubled batch), ``engine.quantize`` (the input to
+int8 codes), ``engine.layers`` (every layer of the forward),
+``engine.decode`` (the heads' decode, and flip's head averaging) and
+``engine.topk``; ``engine.resolve`` (the resolver) holds ``engine.wait``
+(the batch's own event) and ``engine.copy`` (the answer to the host).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from yolo_quantization_tpu_torch.nn.graph import (
 from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut
 from yolo_quantization_tpu_torch.ops.qconv import ACTIVATION_BY_NAME
 from yolo_quantization_tpu_torch.ops.shortcut import shortcut_params
+from yolo_quantization_tpu_torch.utils.profiling import span
 
 _DYNAMIC_INGREDIENTS = ("bias_f", "wsum_i32", "w_scale", "out_scale_f")
 
@@ -263,103 +273,110 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
 
     def forward(arrays, x):
         dyn = None
-        if x.dtype == torch.uint8:
+        with span("engine.quantize"):
+            if x.dtype == torch.uint8:
+                if dynamic_input:
+                    x = x.to(torch.float32) * _f32(1.0 / 255.0)
+                else:
+                    # raw pixel codes: fold the /255 normalization into the scale
+                    x = _quantize_input(x.to(torch.float32), program.in_scale * 255.0,
+                                        program.in_zp)
             if dynamic_input:
-                x = x.to(torch.float32) * _f32(1.0 / 255.0)
-            else:
-                # raw pixel codes: fold the /255 normalization into the scale
-                x = _quantize_input(x.to(torch.float32), program.in_scale * 255.0, program.in_zp)
-        if dynamic_input:
-            scale, zp = _dynamic_input_qp(x)
-            x = _quantize_input_dynamic(x, scale, zp)
-            dyn = (scale, zp)
-        elif x.dtype != torch.int8:
-            x = _quantize_input(x, program.in_scale, program.in_zp)
-        outputs = []
-        heads = []
-        skip_next = False
-        for i, c in enumerate(cfg):
-            s = c.spec
-            if skip_next:  # this maxpool ran inside the previous conv kernel
-                skip_next = False
-                outputs.append(outputs[-1])
-                continue
-            if c.kind == "qconv":
-                def run(a, i=i, c=c, x=x):
-                    if dyn is not None and i == 0:
-                        bias, m = _dyn_bias_m(a, c.symmetric_w, k_elems0, *dyn)
-                        return conv(i, c, a, x, (dyn[1] - 128.0).to(torch.int32), bias, m)
-                    return conv(i, c, a, x, x_zp[i], a["bias_i32"], a["m"])
+                scale, zp = _dynamic_input_qp(x)
+                x = _quantize_input_dynamic(x, scale, zp)
+                dyn = (scale, zp)
+            elif x.dtype != torch.int8:
+                x = _quantize_input(x, program.in_scale, program.in_zp)
+        # the loop stays in this frame: the input codes are freed once
+        # layer 0 has read them
+        with span("engine.layers"):
+            outputs = []
+            heads = []
+            skip_next = False
+            for i, c in enumerate(cfg):
+                s = c.spec
+                if skip_next:  # this maxpool ran inside the previous conv kernel
+                    skip_next = False
+                    outputs.append(outputs[-1])
+                    continue
+                if c.kind == "qconv":
+                    def run(a, i=i, c=c, x=x):
+                        if dyn is not None and i == 0:
+                            bias, m = _dyn_bias_m(a, c.symmetric_w, k_elems0, *dyn)
+                            return conv(i, c, a, x, (dyn[1] - 128.0).to(torch.int32), bias, m)
+                        return conv(i, c, a, x, x_zp[i], a["bias_i32"], a["m"])
 
-                y = run(arrays[i]) if shard is None else shard(i, run)
-                skip_next = i in fused or i in s2d
-                if c.quant_stop:
-                    y = _dequant_i8(y, c.out_scale, c.out_zp)
-            elif c.kind == "fconv":
-                # float conv (per-layer quantized=0)
-                a = arrays[i]
-                if x.dtype == torch.int8:
-                    qp = c.in_scales[0]
-                    x = _dequant_i8(x, qp[0], qp[1])
-                y = L.conv2d(x, a["w_f32"], s.stride, s.pad)
-                y = L.activate(y + a["bias_f32"].reshape(1, 1, 1, -1), s.activation).contiguous()
-            elif c.kind == "maxpool":
-                if x.dtype == torch.int8:
-                    y = L.maxpool_u8(x, s.size, s.stride, s.padding)
+                    y = run(arrays[i]) if shard is None else shard(i, run)
+                    skip_next = i in fused or i in s2d
+                    if c.quant_stop:
+                        y = _dequant_i8(y, c.out_scale, c.out_zp)
+                elif c.kind == "fconv":
+                    # float conv (per-layer quantized=0)
+                    a = arrays[i]
+                    if x.dtype == torch.int8:
+                        qp = c.in_scales[0]
+                        x = _dequant_i8(x, qp[0], qp[1])
+                    y = L.conv2d(x, a["w_f32"], s.stride, s.pad)
+                    y = L.activate(y + a["bias_f32"].reshape(1, 1, 1, -1),
+                                   s.activation).contiguous()
+                elif c.kind == "maxpool":
+                    if x.dtype == torch.int8:
+                        y = L.maxpool_u8(x, s.size, s.stride, s.padding)
+                    else:
+                        y = L.maxpool(x, s.size, s.stride, s.padding).contiguous()
+                elif c.kind == "upsample":
+                    y = L.upsample_nearest(x, s.stride)
+                elif c.kind == "route":
+                    parts = []
+                    for (j, (identity, ratio, zp_in)) in zip(s.layers, c.branches):
+                        t = outputs[j]
+                        if not identity:
+                            t = _requant_i8(t, ratio, zp_in, c.out_zp)
+                        parts.append(t)
+                    y = torch.cat(parts, dim=-1)
+                elif c.kind == "route_f32":
+                    parts = []
+                    for (j, qp) in zip(s.layers, c.branches):
+                        t = outputs[j]
+                        if t.dtype == torch.int8:
+                            t = _dequant_i8(t, qp[0], qp[1])
+                        parts.append(t)
+                    y = torch.cat(parts, dim=-1)
+                elif c.kind in ("shortcut", "shortcut_f32"):
+                    skip = outputs[s.index]
+                    if (c.kind == "shortcut" and x.dtype == torch.int8 and skip.dtype == torch.int8
+                            and i in shortcuts):
+                        y = cuda_shortcut.int_shortcut_cuda(x, skip, shortcuts[i])
+                    else:
+                        # dequant -> float add + activation -> requant (or stay
+                        # float for shortcut_f32)
+                        qp_x, qp_k = c.in_scales
+                        fx = _dequant_i8(x, qp_x[0], qp_x[1]) if x.dtype == torch.int8 else x
+                        fk = (_dequant_i8(skip, qp_k[0], qp_k[1]) if skip.dtype == torch.int8
+                              else skip)
+                        y = L.activate(fx + fk, s.activation)
+                        if c.kind == "shortcut":
+                            y = _quantize_input(y, c.out_scale, c.out_zp)
+                elif c.kind == "yolo":
+                    if x.dtype == torch.int8:
+                        # quantized pre-head conv without quant_stop
+                        x = _dequant_i8(x, c.out_scale, c.out_zp)
+                    y = x
+                    heads.append(x)
+                elif c.kind == "simple":
+                    if x.dtype == torch.int8:
+                        qp = c.in_scales[0]
+                        x = _dequant_i8(x, qp[0], qp[1])
+                    y = apply_simple_layer(s, arrays.get(i), x, train=False).contiguous()
+                    if isinstance(s, (RegionSpec, DetectionSpec)):
+                        heads.append(y)
                 else:
-                    y = L.maxpool(x, s.size, s.stride, s.padding).contiguous()
-            elif c.kind == "upsample":
-                y = L.upsample_nearest(x, s.stride)
-            elif c.kind == "route":
-                parts = []
-                for (j, (identity, ratio, zp_in)) in zip(s.layers, c.branches):
-                    t = outputs[j]
-                    if not identity:
-                        t = _requant_i8(t, ratio, zp_in, c.out_zp)
-                    parts.append(t)
-                y = torch.cat(parts, dim=-1)
-            elif c.kind == "route_f32":
-                parts = []
-                for (j, qp) in zip(s.layers, c.branches):
-                    t = outputs[j]
-                    if t.dtype == torch.int8:
-                        t = _dequant_i8(t, qp[0], qp[1])
-                    parts.append(t)
-                y = torch.cat(parts, dim=-1)
-            elif c.kind in ("shortcut", "shortcut_f32"):
-                skip = outputs[s.index]
-                if (c.kind == "shortcut" and x.dtype == torch.int8 and skip.dtype == torch.int8
-                        and i in shortcuts):
-                    y = cuda_shortcut.int_shortcut_cuda(x, skip, shortcuts[i])
-                else:
-                    # dequant -> float add + activation -> requant (or stay
-                    # float for shortcut_f32)
-                    qp_x, qp_k = c.in_scales
-                    fx = _dequant_i8(x, qp_x[0], qp_x[1]) if x.dtype == torch.int8 else x
-                    fk = _dequant_i8(skip, qp_k[0], qp_k[1]) if skip.dtype == torch.int8 else skip
-                    y = L.activate(fx + fk, s.activation)
-                    if c.kind == "shortcut":
-                        y = _quantize_input(y, c.out_scale, c.out_zp)
-            elif c.kind == "yolo":
-                if x.dtype == torch.int8:
-                    # quantized pre-head conv without quant_stop
-                    x = _dequant_i8(x, c.out_scale, c.out_zp)
-                y = x
-                heads.append(x)
-            elif c.kind == "simple":
-                if x.dtype == torch.int8:
-                    qp = c.in_scales[0]
-                    x = _dequant_i8(x, qp[0], qp[1])
-                y = apply_simple_layer(s, arrays.get(i), x, train=False).contiguous()
-                if isinstance(s, (RegionSpec, DetectionSpec)):
-                    heads.append(y)
-            else:
-                raise ValueError(c.kind)
-            outputs.append(y)
-            x = y
-        if return_outputs:
-            return heads, outputs
-        return heads
+                    raise ValueError(c.kind)
+                outputs.append(y)
+                x = y
+            if return_outputs:
+                return heads, outputs
+            return heads
 
     return forward
 
@@ -438,23 +455,30 @@ class Engine:
             raise ValueError(f"images must be float32 or uint8, got {images.dtype}")
         return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
 
+    def _batch(self, images, flip: bool) -> torch.Tensor:
+        """The forward's input on the device; with ``flip``, the batch and
+        its mirror in one doubled batch."""
+        with span("engine.input"):
+            x = self._input(images)
+            return torch.cat([x, x.flip(2)]) if flip else x
+
     def _run(self, images: np.ndarray, flip: bool):
         with torch.inference_mode():
-            x = self._input(images)
-            if flip:
-                # flip TTA: the batch and its mirror in one doubled batch, the
-                # raw yolo heads averaged; other heads keep the unflipped one
-                n = x.shape[0]
-                heads = self._fwd(self.arrays, torch.cat([x, x.flip(2)]))
-                heads = [
-                    detect.flip_average_head(h[:n], h[n:], spec.classes)
-                    if isinstance(spec, YoloSpec) else h[:n]
-                    for h, spec in zip(heads, self._head_specs)
-                ]
-            else:
-                heads = self._fwd(self.arrays, x)
-            boxes, obj, cls = detect.decode_all_heads(heads, self.program.net)
-            return detect.top_k_detections(boxes, obj, cls, self.max_det)
+            n = images.shape[0]
+            # no name here holds the batch: the forward frees it after layer 0
+            heads = self._fwd(self.arrays, self._batch(images, flip))
+            with span("engine.decode"):
+                # flip TTA: the raw yolo heads averaged over the pair; other
+                # heads keep the unflipped one
+                if flip:
+                    heads = [
+                        detect.flip_average_head(h[:n], h[n:], spec.classes)
+                        if isinstance(spec, YoloSpec) else h[:n]
+                        for h, spec in zip(heads, self._head_specs)
+                    ]
+                boxes, obj, cls = detect.decode_all_heads(heads, self.program.net)
+            with span("engine.topk"):
+                return detect.top_k_detections(boxes, obj, cls, self.max_det)
 
     def predict(self, images: np.ndarray, flip: bool = False):
         """images: (N, H, W, 3) float32 letterboxed to the network size, or
@@ -467,18 +491,22 @@ class Engine:
     def predict_async(self, images: np.ndarray, flip: bool = False):
         """Enqueue a batch on the current CUDA stream and return a zero-arg
         resolver that waits for it and copies (boxes, obj, cls) to the host."""
-        outs = self._run(images, flip)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+        with span("engine.predict_async"):
+            outs = self._run(images, flip)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
 
-        def resolve():
-            if done is not None:
-                done.synchronize()
-            return tuple(t.cpu().numpy() for t in outs)
+            def resolve():
+                with span("engine.resolve"):
+                    with span("engine.wait"):
+                        if done is not None:
+                            done.synchronize()
+                    with span("engine.copy"):
+                        return tuple(t.cpu().numpy() for t in outs)
 
-        return resolve
+            return resolve
 
     def raw_heads(self, images: np.ndarray, return_outputs: bool = False):
         """The dequantized head tensors as numpy; with ``return_outputs``

@@ -35,6 +35,7 @@ from yolo_quantization_tpu_torch.core.quant import (
 from yolo_quantization_tpu_torch.core.tree import softmax_tree
 from yolo_quantization_tpu_torch.nn import layers as L
 from yolo_quantization_tpu_torch.parallel import mesh as pmesh
+from yolo_quantization_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -523,7 +524,7 @@ def _batch_range(y: torch.Tensor, stat: str, group=None) -> tuple[torch.Tensor, 
     (linear interpolation, the reference's float32 arithmetic) of every
     (n // 65536)-th element.
     """
-    with torch.profiler.record_function("range_stats"):
+    with span("range_stats"):
         return _batch_range_stat(y.detach(), stat, group)
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from yolo_quantization_tpu_torch.core.tree import path_rows, sibling_rows
+from yolo_quantization_tpu_torch.utils.profiling import span
 
 MAX_BOXES = 90  # darknet's truth bound
 
@@ -417,7 +418,7 @@ def total_loss(heads, truths, net, input_hw: tuple[int, int] | None = None, seen
     specs = [s for s in net.specs if isinstance(s, HEAD_SPECS)]
     loss = 0.0
     all_stats = []
-    with torch.profiler.record_function("yolo_loss"):
+    with span("yolo_loss"):
         for raw, s in zip(heads, specs):
             if isinstance(s, YoloSpec):
                 l, st = yolo_head_loss(raw, truths, s.mask, s.anchors, s.classes, net_w, net_h)

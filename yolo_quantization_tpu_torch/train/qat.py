@@ -52,6 +52,7 @@ from yolo_quantization_tpu_torch.nn.graph import (
 )
 from yolo_quantization_tpu_torch.parallel import mesh as pmesh
 from yolo_quantization_tpu_torch.train.loss import _threefry2x32, total_loss
+from yolo_quantization_tpu_torch.utils.profiling import span
 
 BN_ROLLING_DECAY = 0.99
 
@@ -328,10 +329,10 @@ def make_train_step(net: NetworkDef, cfg: TrainConfig, qat: bool,
         loss.backward()
         metrics = {"loss": pmesh.global_mean(loss.detach(), group), "lr": lr}
         if cfg.prune:
-            with torch.profiler.record_function("train_state_update"):
+            with span("train_state_update"):
                 metrics["sparsity"] = _prune_step(net, cfg, state.params, opt)
         opt.step()
-        with torch.no_grad(), torch.profiler.record_function("train_state_update"):
+        with torch.no_grad(), span("train_state_update"):
             roll_bn_stats(state.params, aux["bn_stats"])
             if learned_ranges:
                 # sign-SGD with clamps that keep the nudge well defined:

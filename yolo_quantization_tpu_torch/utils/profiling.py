@@ -1,6 +1,14 @@
 """Profiling and metrics: the counterpart of
 ``yolo_quantization_tpu/utils/profiling.py``.
 
+  - ``span(name)``: the one way the port opens a named profiler range.  A
+    ``torch.profiler.record_function`` while a profiler runs, so the range
+    lands in the trace beside the device activity it launched, on one
+    clock; a shared null context otherwise, which costs one flag read
+    (``record_function`` itself costs microseconds even with no profiler
+    on).  The training ranges (``fake_quant``, ``ema_update``,
+    ``range_stats``, ``yolo_loss``, ``train_state_update``) and the
+    Engine's (``engine.*``, ``infer/engine.py``) open through it;
   - ``trace(logdir)``: a ``torch.profiler`` context over the enclosed block
     (CPU, and CUDA where there is a card) that writes a Chrome trace into
     ``logdir``, viewable in Perfetto or chrome://tracing;
@@ -19,6 +27,22 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` around a ``with`` block while a
+    profiler runs, and the shared null context while none does.
+
+    ``torch.autograd.profiler._is_profiler_enabled`` is the process-wide
+    flag the profiler sets on entry and clears on exit: it reads True on
+    every thread (``tests/test_torch_engine_spans.py`` pins it), where
+    ``torch.autograd._profiler_enabled()`` reads False on a thread the
+    profiler was not started on."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
