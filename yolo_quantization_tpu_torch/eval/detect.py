@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from yolo_quantization_tpu_torch.core.tree import hierarchy_predictions, hierarchy_top_prediction
-from yolo_quantization_tpu_torch.nn.graph import DetectionSpec, RegionSpec, YoloSpec
+from yolo_quantization_tpu_torch.nn.graph import HEAD_SPECS, RegionSpec, YoloSpec
 
 
 def decode_head(
@@ -53,17 +53,20 @@ def decode_head(
     )
 
 
-def decode_region_head(out: torch.Tensor, spec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def decode_region_head(out: torch.Tensor, spec,
+                       anchors: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode a YOLOv2 [region] head from its forward output (x, y and
     objectness already logistic, classes already softmaxed).  Region
     anchors are in feature-grid units: bw = exp(tw) * anchor_w / W.  With a
     WordTree the classes become joint path probabilities
     (get_region_detections' hierarchy_predictions, src/region_layer.c:414-416);
-    ``tree_top_probs`` then picks each detection's node on the host."""
+    ``tree_top_probs`` then picks each detection's node on the host.
+    ``anchors``: the head's entry of ``head_anchors``, built here if None."""
     n, h, w, _ = out.shape
     a = spec.num
     r = out.reshape(n, h, w, a, 5 + spec.classes)
-    anchors = torch.tensor(spec.anchors, dtype=torch.float32, device=out.device)
+    if anchors is None:
+        anchors = _anchors(spec, out.device)
     cols = torch.arange(w, dtype=torch.float32, device=out.device).reshape(1, 1, w, 1)
     rows = torch.arange(h, dtype=torch.float32, device=out.device).reshape(1, h, 1, 1)
     bx = (r[..., 0] + cols) / w
@@ -128,22 +131,38 @@ def flip_average_head(a: torch.Tensor, b: torch.Tensor, classes: int) -> torch.T
     return (a + bf.reshape(n, h, w, c)) / 2.0
 
 
-def decode_all_heads(heads, net):
+def _anchors(spec, device) -> torch.Tensor | None:
+    """A head's anchors as (A, 2) float32 on ``device``: a yolo head's masked
+    ones, a region head's all; a detection head has none."""
+    if isinstance(spec, YoloSpec):
+        return torch.tensor([spec.anchors[m] for m in spec.mask], dtype=torch.float32, device=device)
+    if isinstance(spec, RegionSpec):
+        return torch.tensor(spec.anchors, dtype=torch.float32, device=device)
+    return None
+
+
+def head_anchors(net, device) -> list[torch.Tensor | None]:
+    """Every head's anchors on ``device``, in head order, for
+    ``decode_all_heads``.  Built from host data, so each is a copy that
+    waits for the device's queue: an engine builds the list once, and its
+    decode then enqueues without waiting."""
+    return [_anchors(s, device) for s in net.specs if isinstance(s, HEAD_SPECS)]
+
+
+def decode_all_heads(heads, net, anchors=None):
     """Decode every head (yolo, region, detection) and concat along the
-    candidate axis."""
-    head_specs = [
-        s for s in net.specs if isinstance(s, (YoloSpec, RegionSpec, DetectionSpec))
-    ]
+    candidate axis.  ``anchors``: ``head_anchors(net, device)``, built here
+    if None."""
+    head_specs = [s for s in net.specs if isinstance(s, HEAD_SPECS)]
     assert len(head_specs) == len(heads)
+    if anchors is None:
+        anchors = head_anchors(net, heads[0].device)
     parts = []
-    for raw, spec in zip(heads, head_specs):
+    for raw, spec, anc in zip(heads, head_specs, anchors):
         if isinstance(spec, YoloSpec):
-            anchors = torch.tensor(
-                [spec.anchors[m] for m in spec.mask], dtype=torch.float32, device=raw.device
-            )
-            parts.append(decode_head(raw, anchors, spec.classes, net.width, net.height))
+            parts.append(decode_head(raw, anc, spec.classes, net.width, net.height))
         elif isinstance(spec, RegionSpec):
-            parts.append(decode_region_head(raw, spec))
+            parts.append(decode_region_head(raw, spec, anc))
         else:
             parts.append(decode_detection_head(raw, spec))
     boxes = torch.cat([p[0] for p in parts], dim=1)

@@ -416,6 +416,8 @@ class Engine:
         # ``arrays``: device arrays to share (the at_size cache)
         self.arrays = arrays if arrays is not None else device_arrays(program, self.device)
         self._head_specs = [s for s in program.net.specs if isinstance(s, HEAD_SPECS)]
+        # on the device before the first request, so the enqueue never waits
+        self._anchors = detect.head_anchors(program.net, self.device)
         self._size_cache: dict[tuple[int, int], Engine] = {}
 
     def at_size(self, height: int, width: int | None = None) -> "Engine":
@@ -476,7 +478,7 @@ class Engine:
                         if isinstance(spec, YoloSpec) else h[:n]
                         for h, spec in zip(heads, self._head_specs)
                     ]
-                boxes, obj, cls = detect.decode_all_heads(heads, self.program.net)
+                boxes, obj, cls = detect.decode_all_heads(heads, self.program.net, self._anchors)
             with span("engine.topk"):
                 return detect.top_k_detections(boxes, obj, cls, self.max_det)
 

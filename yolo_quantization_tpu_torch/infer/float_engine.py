@@ -9,8 +9,8 @@ The counterpart of ``yolo_quantization_tpu/infer/float_engine.py``:
 
 Both run on the GPU unless ``device`` says otherwise (``"cpu"``), and raise
 where there is no GPU and no device was given.  ``predict`` decodes and
-top-k's on the device; ``raw_heads``, flip TTA and ``at_size`` are as in
-the integer engine.
+top-k's on the device; ``predict_async``, ``raw_heads``, flip TTA and
+``at_size`` are as in the integer engine.
 """
 
 from __future__ import annotations
@@ -64,6 +64,8 @@ class FloatEngine:
                        else _as_device_tensors(params, self.device, params_to_torch))
         self.quant_state = _quant_state
         self._head_specs = [s for s in net.specs if isinstance(s, HEAD_SPECS)]
+        # on the device before the first request, so the enqueue never waits
+        self._anchors = detect.head_anchors(net, self.device)
         self._size_cache: dict[tuple[int, int], FloatEngine] = {}
 
     @property
@@ -107,6 +109,11 @@ class FloatEngine:
     def predict(self, images: np.ndarray, flip: bool = False):
         """Decoded (boxes, obj, cls) top-k as numpy; ``flip`` averages the
         yolo heads over the horizontal mirror."""
+        return self.predict_async(images, flip=flip)()
+
+    def predict_async(self, images: np.ndarray, flip: bool = False):
+        """Enqueue a batch on the current stream and return a zero-arg
+        resolver that copies (boxes, obj, cls) to the host."""
         with torch.inference_mode():
             x = self._input(images)
             if flip:
@@ -117,9 +124,9 @@ class FloatEngine:
                          for h, spec in zip(heads, self._head_specs)]
             else:
                 heads = self._heads(x)
-            boxes, obj, cls = detect.decode_all_heads(heads, self.net)
+            boxes, obj, cls = detect.decode_all_heads(heads, self.net, self._anchors)
             out = detect.top_k_detections(boxes, obj, cls, self.max_det)
-            return tuple(t.cpu().numpy() for t in out)
+        return lambda: tuple(t.cpu().numpy() for t in out)
 
     def raw_heads(self, images: np.ndarray):
         with torch.inference_mode():

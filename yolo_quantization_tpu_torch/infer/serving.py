@@ -154,11 +154,7 @@ class Server:
             batch = np.zeros((bucket, net.height, net.width, 3), np.float32)
             for i, x in enumerate(letterboxed):
                 batch[i] = x
-        if hasattr(self.engine, "predict_async"):
-            resolve = self.engine.predict_async(batch)
-        else:  # FloatEngine: predict returns finished host arrays
-            out = self.engine.predict(batch)
-            resolve = lambda: out  # noqa: E731
+        resolve = self.engine.predict_async(batch)
         while True:
             try:
                 self._inflight.put((reqs, resolve, bucket), timeout=0.25)

@@ -33,12 +33,14 @@ import torch.nn.functional as F
 BN_EPS = 1e-6  # darknet adds eps to sqrt(var), not to var
 
 
+# constants by ``new_full``, a fill on x's device: ``new_tensor`` copies from
+# the host, and on the card that copy waits for the device's queue
 def _max(x: torch.Tensor, v: float) -> torch.Tensor:
-    return torch.maximum(x, x.new_tensor(v))
+    return torch.maximum(x, x.new_full((), v))
 
 
 def _min(x: torch.Tensor, v: float) -> torch.Tensor:
-    return torch.minimum(x, x.new_tensor(v))
+    return torch.minimum(x, x.new_full((), v))
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -58,7 +60,7 @@ def activate(x: torch.Tensor, name: str) -> torch.Tensor:
     if name == "relu6":
         return clip(x, 0.0, 6.0)
     if name == "leaky6":
-        return torch.where(x > 6, x.new_tensor(6.0), torch.where(x > 0, x, 0.1 * x))
+        return torch.where(x > 6, x.new_full((), 6.0), torch.where(x > 0, x, 0.1 * x))
     if name == "logistic":
         return torch.sigmoid(x)
     if name == "loggy":

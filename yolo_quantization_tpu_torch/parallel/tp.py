@@ -138,11 +138,13 @@ def make_tp_engine(program, n_model: int | None = None, n_data: int | None = Non
     mesh = global_mesh(n_model, dev)
     fwd = tp_forward(program, n_model, dev, mesh.get_group("model"), **options)
     data = mesh.get_group("data")
+    anchors = detect.head_anchors(program.net, dev)
 
     def predict(images):
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(pmesh.shard_batch(data, images))).to(dev)
-            boxes, obj, cls = detect.top_k_detections(*detect.decode_all_heads(fwd(x), program.net), max_det)
+            boxes, obj, cls = detect.top_k_detections(
+                *detect.decode_all_heads(fwd(x), program.net, anchors), max_det)
             return tuple(pmesh.gather_cat(t, data).cpu().numpy() for t in (boxes, obj, cls))
 
     return predict, mesh

@@ -84,11 +84,12 @@ def make_run(program, device):
     fwd = build_forward(program)
     arrays = device_arrays(program, device)
     net = program.net
+    anchors = detect.head_anchors(net, device)
 
     def run(x):
         with torch.inference_mode():
             boxes, obj, cls = detect.top_k_detections(
-                *detect.decode_all_heads(fwd(arrays, x), net), MAX_DET)
+                *detect.decode_all_heads(fwd(arrays, x), net, anchors), MAX_DET)
             return boxes, obj, cls, obj.sum()
 
     return run
