@@ -7,10 +7,11 @@ size and load, in one process:
 - for each of ``--seeds``: the program built from the seed, a short
   window of the cell's traffic, its sampled answers judged against the
   reference (the sound runs: the lower readings);
-- for each of ``--control-seeds``: the control, the reference put in the
-  program's place with int4 weights (W4A8, the precision below the
-  configuration's int8), its answers for the cell's frame batches judged
-  the same way (the upper readings);
+- for each of ``--control-seeds``: the control, the configuration's
+  reference (``harness.reference``) put in the program's place with int4
+  weights (W4A8, the precision below the configuration's int8), its
+  answers for the cell's frame batches judged the same way (the upper
+  readings);
 - with ``--faults``, for each control seed, each fault of ``faults.py``
   planted under the program's entry.
 
@@ -35,7 +36,6 @@ def main(argv=None) -> int:
     import torch
 
     from portbench import faults, harness
-    from portbench.reference import model
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -72,16 +72,18 @@ def main(argv=None) -> int:
         program_run(seed)
 
     cell, config = harness.cell_files(ROOT, args.workload)
+    ref = harness.reference(config)
     for seed in (int(s) for s in args.control_seeds.split(",")):
         t = time.perf_counter()
-        _, _, net, weights, ranges, pool = harness.cell_inputs(cell, config, seed, args.device,
-                                                               overrides)
-        control = model.convert(net, weights, ranges, args.device, bits=4)
-        items = [(p, model.answers(control, pool[p], int(config["max_det"])))
+        _, _, net, weights, ranges, pool = harness.cell_inputs(ref, cell, config, seed,
+                                                               args.device, overrides)
+        control = ref.convert(net, weights, ranges, args.device, bits=4)
+        items = [(p, ref.answers(control, pool[p], int(config["max_det"])))
                  for p in range(min(len(pool), int(cell["sample_requests"])))]
 
         emit({"kind": "control", "seed": seed,
-              **harness.judge(net, weights, ranges, pool, args.device, int(config["max_det"]), items),
+              **harness.judge(ref, net, weights, ranges, pool, args.device,
+                              int(config["max_det"]), items),
               "seconds": time.perf_counter() - t})
         if args.faults:
             for name, plant in faults.FAULTS.items():

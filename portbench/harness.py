@@ -6,7 +6,10 @@ Everything is found by name: ``BENCHMARK.json`` at the checkout's root
 names the metrics and the cells they belong to; a cell is
 ``workloads/<cell>.json``, its configuration ``configs/<config>.json``, its
 traffic kind ``traffic/<kind>.py`` and each per-layer metric
-``metrics/<name>.py`` or ``metrics/<stem>.py``.
+``metrics/<name>.py`` or ``metrics/<stem>.py``.  A configuration may name
+its own reference, ``reference/<module>.py``, and a range rule of its own,
+``ranges/<rule>.py``; without them it takes ``reference/darknet_cfg.py``
+and ``reference/model.py`` and a rule of ``inputs.py``.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ import importlib.util
 import json
 import math
 import random
+import re
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 from torch.profiler import record_function
@@ -28,6 +33,7 @@ from portbench import compare, inputs, system, trace
 from portbench.reference import darknet_cfg, model
 
 HERE = Path(__file__).resolve().parent
+FILE_NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def load_json(path: Path) -> dict:
@@ -35,13 +41,98 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def shown(path: Path) -> str:
+    """``path`` as the benchmark's own, ``portbench/...``."""
+    return str(path.relative_to(HERE.parent))
+
+
+def load_file(folder: str, name: str, required: tuple, what: str):
+    """The module ``portbench/<folder>/<name>.py``, loaded by its path; stops
+    the run, naming the file, where it is missing or lacks a function of
+    ``required``."""
+    if not isinstance(name, str) or not FILE_NAME.match(name):
+        raise SystemExit(f"{what} {name!r} is not a file name of portbench/{folder}/")
+    path = HERE / folder / f"{name}.py"
+    if not path.exists():
+        raise SystemExit(f"{what} {name!r}: {shown(path)} is missing")
+    spec = importlib.util.spec_from_file_location(f"portbench.{folder}.{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    missing = [f for f in required if not callable(getattr(module, f, None))]
+    if missing:
+        raise SystemExit(f"{what} {name!r}: {shown(path)} has no {', '.join(missing)}")
+    return module
+
+
+class Reference(NamedTuple):
+    """A configuration's plain reference (``reference/model.py`` says what
+    each function does)."""
+    parse: Callable
+    convert: Callable
+    heads: Callable
+    candidates: Callable
+    answers: Callable
+    answer_count: Callable
+
+
+REFERENCE_FUNCTIONS = ("parse", "convert", "heads", "candidates", "answers")
+
+
+def yolo_answer_count(net, max_det: int) -> int:
+    """Detections in an answer: ``max_det``, or every candidate of the
+    ``[yolo]`` heads where they hold fewer."""
+    return min(max_det, sum(layer.out_shape[0] * layer.out_shape[1] * len(layer.mask)
+                            for layer in net.layers if layer.kind == "yolo"))
+
+
+def reference(config: dict) -> Reference:
+    """The reference a configuration names with ``"reference": "<module>"``,
+    ``reference/<module>.py``; without the key, ``darknet_cfg`` and
+    ``model`` themselves.  A module may reuse their functions but may not
+    rebind any of them: that would change the reference of every other
+    cell in the process, so it stops the run."""
+    name = config.get("reference")
+    if name is None:
+        return Reference(darknet_cfg.parse, model.convert, model.heads, model.candidates,
+                         model.answers, yolo_answer_count)
+    bound = {m: dict(vars(m)) for m in (darknet_cfg, model)}
+    module = load_file("reference", name, REFERENCE_FUNCTIONS, "reference")
+    for m, names in bound.items():
+        changed = sorted(k for k, v in names.items() if k not in vars(m) or vars(m)[k] is not v)
+        if changed:
+            vars(m).update(names)
+            raise SystemExit(f"reference {name!r}: {shown(HERE / 'reference' / f'{name}.py')} "
+                             f"rebinds {m.__name__}.{', '.join(changed)}")
+    return Reference(*(getattr(module, f) for f in REFERENCE_FUNCTIONS),
+                     getattr(module, "answer_count", yolo_answer_count))
+
+
+def range_rule(config: dict) -> Callable:
+    """``ranges(net)`` of the rule a configuration names: one of ``inputs.py``,
+    else ``ranges/<rule>.py``."""
+    rule = config["ranges"]
+    if rule in inputs.RANGE_RULES:
+        return lambda net: inputs.ranges(net, rule)
+    return load_file("ranges", rule, ("ranges",), "range rule").ranges
+
+
 def cell_files(root: Path, name: str) -> tuple[dict, dict]:
-    """(the cell's workload file, its configuration file)."""
+    """(the cell's workload file, its configuration file).  Every piece the
+    configuration names is looked up here, before anything is built, so
+    that a missing one costs no build."""
     path = HERE / "workloads" / f"{name}.json"
     if not path.exists():
         raise SystemExit(f"no cell {name!r}: {path.relative_to(root)} is missing")
     cell = load_json(path)
-    return cell, load_json(HERE / "configs" / f"{cell['config']}.json")
+    path = HERE / "configs" / f"{cell['config']}.json"
+    config = load_json(path)
+    reference(config)
+    range_rule(config)
+    try:
+        system.options(config)
+    except ValueError as e:
+        raise SystemExit(f"{shown(path)}: {e}") from None
+    return cell, config
 
 
 def cfg_text(config: dict, size: int) -> str:
@@ -60,12 +151,8 @@ def metrics_of(manifest: dict, group: str, cell: str) -> list[dict]:
 def reader(name: str):
     """The reader of per-layer metric ``name``."""
     for stem in (name, name.split(".", 1)[0]):
-        path = HERE / "metrics" / f"{stem}.py"
-        if path.exists():
-            spec = importlib.util.spec_from_file_location(f"portbench.metrics.{stem}", path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
-            return module.read
+        if (HERE / "metrics" / f"{stem}.py").exists():
+            return load_file("metrics", stem, ("read",), "metric").read
     raise SystemExit(f"no reader for metric {name!r} under portbench/metrics/")
 
 
@@ -112,7 +199,8 @@ def nothing(request, answer) -> None:
     return None
 
 
-def cell_inputs(cell: dict, config: dict, seed: int, device, overrides: dict | None = None):
+def cell_inputs(ref: Reference, cell: dict, config: dict, seed: int, device,
+                overrides: dict | None = None):
     """(traffic params, .cfg text, the reference's network, float weights,
     ranges, frame pool) of a cell from ``seed``; ``overrides`` (size, and
     params such as batch and pool) shrink it for the tests."""
@@ -122,9 +210,8 @@ def cell_inputs(cell: dict, config: dict, seed: int, device, overrides: dict | N
         size = overrides.get("size", size)
         params.update({k: v for k, v in overrides.items() if k != "size"})
     text = cfg_text(config, size)
-    net = darknet_cfg.parse(text)
-    return (params, text, net, inputs.float_params(net, seed, device),
-            inputs.ranges(net, config["ranges"]),
+    net = ref.parse(text)
+    return (params, text, net, inputs.float_params(net, seed, device), range_rule(config)(net),
             inputs.frame_pool(int(params["pool"]), int(params["batch"]), size, seed, device))
 
 
@@ -138,8 +225,9 @@ class Cell:
                  plant=None):
         self.device = device
         self.cell, self.config = cell_files(root, name)
+        self.ref = reference(self.config)
         (self.params, text, self.net, self.weights, self.ranges,
-         self.pool) = cell_inputs(self.cell, self.config, seed, device, overrides)
+         self.pool) = cell_inputs(self.ref, self.cell, self.config, seed, device, overrides)
         self.batch, self.max_det = int(self.params["batch"]), int(self.config["max_det"])
         self.engine = system.engine(self.config, text, self.weights, self.ranges, device)
         entry = self.engine.predict_async
@@ -164,25 +252,24 @@ class Cell:
         return int(peak)
 
     def judge(self, items: list) -> dict:
-        return judge(self.net, self.weights, self.ranges, self.pool, self.device, self.max_det,
-                     items)
+        return judge(self.ref, self.net, self.weights, self.ranges, self.pool, self.device,
+                     self.max_det, items)
 
 
-def judge(net, weights, ranges, pool, device, max_det: int, items: list) -> dict:
+def judge(ref: Reference, net, weights, ranges, pool, device, max_det: int,
+          items: list) -> dict:
     """``compare.judge`` of sampled answers ``items`` [(pool index, answer)]
-    against the reference, which runs once over each frame batch they
-    answered."""
-    program = model.convert(net, weights, ranges, device)
+    against the reference ``ref``, which runs once over each frame batch
+    they answered."""
+    program = ref.convert(net, weights, ranges, device)
     rows: dict = {}
 
     def reference_rows(p):
         if p not in rows:
-            rows[p] = model.candidates(program, pool[p], max_det, compare.TIE)
+            rows[p] = ref.candidates(program, pool[p], max_det, compare.TIE)
         return rows[p]
 
-    answer_k = min(max_det, sum(layer.out_shape[0] * layer.out_shape[1] * len(layer.mask)
-                                for layer in net.layers if layer.kind == "yolo"))
-    return compare.judge(items, reference_rows, pool.shape[1], answer_k)
+    return compare.judge(items, reference_rows, pool.shape[1], ref.answer_count(net, max_det))
 
 
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace_on: bool, device,

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 LETTERBOX_GRAY = 127
+RANGE_RULES = ("synthetic", "perturbed")
 
 
 def sub_seed(seed: int, tag: str) -> int:
@@ -77,7 +78,7 @@ def tracked(net) -> list[str]:
 def ranges(net, rule: str) -> dict:
     """{"input": ..., "act_i": ...} of {"min", "max"} as float32, by ``rule``:
     ``synthetic`` or ``perturbed``."""
-    if rule not in ("synthetic", "perturbed"):
+    if rule not in RANGE_RULES:
         raise ValueError(f"unknown range rule {rule!r}")
     out = {"input": {"min": np.float32(0.0), "max": np.float32(1.0)}}
     for idx, key in enumerate(tracked(net)):

@@ -5,6 +5,7 @@ the ``cuda_device`` fixture where there is no card; they run on the card
 with ``python -m pytest portbench/tests -m cuda``.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -13,6 +14,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+
+# every cell of BENCHMARK.json, so that a cell added later is tested too
+CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def pytest_configure(config):

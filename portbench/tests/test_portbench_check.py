@@ -7,9 +7,8 @@ import time
 import pytest
 
 from portbench import compare, faults, harness, inputs
-from portbench.reference import darknet_cfg, model
+from portbench.tests.conftest import CELLS
 
-CELLS = ["tiny416-b128-closed", "v3-416-b64-offline"]
 SMALL = {"size": 64, "batch": 2, "pool": 2}
 
 
@@ -35,16 +34,17 @@ def test_each_fault_is_caught(root, cell, fault):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails(root, cell):
-    """The reference with int4 weights (W4A8) in the program's place."""
+    """The cell's reference with int4 weights (W4A8) in the program's place."""
     c, config = harness.cell_files(root, cell)
-    net = darknet_cfg.parse(harness.cfg_text(config, SMALL["size"]))
+    ref = harness.reference(config)
+    net = ref.parse(harness.cfg_text(config, SMALL["size"]))
     for seed in (1, 2, 3):
         weights = inputs.float_params(net, seed, "cpu")
-        ranges = inputs.ranges(net, config["ranges"])
+        ranges = harness.range_rule(config)(net)
         pool = inputs.frame_pool(SMALL["pool"], SMALL["batch"], SMALL["size"], seed, "cpu")
-        control = model.convert(net, weights, ranges, "cpu", bits=4)
-        items = [(p, model.answers(control, pool[p], config["max_det"])) for p in range(len(pool))]
-        found = harness.judge(net, weights, ranges, pool, "cpu", config["max_det"], items)
+        control = ref.convert(net, weights, ranges, "cpu", bits=4)
+        items = [(p, ref.answers(control, pool[p], config["max_det"])) for p in range(len(pool))]
+        found = harness.judge(ref, net, weights, ranges, pool, "cpu", config["max_det"], items)
         assert found["det_gap"] > c["checks"]["det_gap"] * 100
 
 

@@ -24,20 +24,35 @@ def imported(path: Path) -> set:
     return names
 
 
+def benchmark_modules(path: Path) -> set:
+    """The modules of the benchmark that ``path`` imports by name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module == "portbench" and node.level == 0:
+            names.update(f"portbench.{a.name}" for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+        elif isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+    return {n for n in names if n.split(".")[0] == "portbench"}
+
+
 def test_sources(root):
+    """The reference's files and the range rules import nothing of the
+    program and no JAX: numpy, torch and, of the benchmark, the reference
+    (and for a range rule ``inputs``) alone."""
     files = sorted((root / "portbench").rglob("*.py"))
     assert files
     for f in files:
         assert not imported(f) & FORBIDDEN, f
-    for f in sorted((root / "portbench" / "reference").rglob("*.py")):
-        names = imported(f)
-        assert PORT not in names, f
-        assert names <= {"__future__", "dataclasses", "numpy", "torch", "portbench"}, (f, names)
-    # the reference reaches into the benchmark only for its own modules
-    for f in sorted((root / "portbench" / "reference").rglob("*.py")):
-        for node in ast.walk(ast.parse(f.read_text())):
-            if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("portbench"):
-                assert node.module.startswith("portbench.reference"), f
+    for folder, own in (("reference", ("portbench.reference",)),
+                        ("ranges", ("portbench.reference", "portbench.inputs"))):
+        for f in sorted((root / "portbench" / folder).rglob("*.py")):
+            names = imported(f)
+            assert PORT not in names, f
+            assert names <= {"__future__", "dataclasses", "numpy", "torch", "portbench"}, (f, names)
+            for module in benchmark_modules(f):
+                assert module.startswith(own), (f, module)
 
 
 def test_a_run_loads_no_jax(root):

@@ -1,5 +1,7 @@
 """The reference against the program on the CPU, at small sizes: the same
-network from the same .cfg text, the same integer codes in every head."""
+network from the same .cfg text, the same integer codes in every head.
+Each cell's configuration is read by its own reference, as the harness
+resolves it, and built by the program with its own options."""
 
 import dataclasses
 
@@ -7,23 +9,27 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import harness, inputs
+from portbench import harness, inputs, system
 from portbench.reference import darknet_cfg, model
+from portbench.tests.conftest import CELLS
 
-CELLS = ["tiny416-b128-closed", "v3-416-b64-offline"]
+ZOO = {"yolov3-tiny-channelwise": "yolov3_tiny", "yolov3-coco80": "yolov3"}
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cfg_reads_as_the_zoo_builds_it(root, cell):
+    """The reference reads every layer's shape as the program does, and
+    the program reads the .cfg as its model zoo builds it, where the zoo
+    has the model."""
     from yolo_quantization_tpu_torch.models import zoo
     from yolo_quantization_tpu_torch.models.cfg import parse_cfg
 
     _, config = harness.cell_files(root, cell)
     text = harness.cfg_text(config, config["size"])
     net, _ = parse_cfg(text)
-    built = {"yolov3-tiny-channelwise": zoo.yolov3_tiny, "yolov3-coco80": zoo.yolov3}[config["name"]]()
-    assert net == built
-    ref = darknet_cfg.parse(text)
+    if config["name"] in ZOO:
+        assert net == getattr(zoo, ZOO[config["name"]])()
+    ref = harness.reference(config).parse(text)
     assert [layer.out_shape for layer in ref.layers] == net.shapes()
 
 
@@ -31,19 +37,16 @@ def test_cfg_reads_as_the_zoo_builds_it(root, cell):
 def test_head_codes_equal_the_program(root, cell):
     """Every code of every head, reference against ``Engine(device="cpu")``,
     at 64x64 on two frames, weights and ranges from one seed."""
-    from yolo_quantization_tpu_torch.infer.convert import convert
-    from yolo_quantization_tpu_torch.infer.engine import Engine
-    from yolo_quantization_tpu_torch.models.cfg import parse_cfg
-
     _, config = harness.cell_files(root, cell)
+    ref = harness.reference(config)
     text = harness.cfg_text(config, 64)
-    net = darknet_cfg.parse(text)
+    net = ref.parse(text)
     weights = inputs.float_params(net, 17, "cpu")
-    ranges = inputs.ranges(net, config["ranges"])
+    ranges = harness.range_rule(config)(net)
     frames = inputs.frame_pool(1, 2, 64, 17, "cpu")[0]
-    engine = Engine(convert(parse_cfg(text)[0], weights, ranges), max_det=100, device="cpu")
-    program = model.convert(net, weights, ranges, "cpu")
-    ours = model.heads(program, frames)
+    engine = system.engine(config, text, weights, ranges, "cpu")
+    program = ref.convert(net, weights, ranges, "cpu")
+    ours = ref.heads(program, frames)
     theirs = engine.raw_heads(frames)
     heads = [program.layers[i].dequant for i, layer in enumerate(net.layers)
              if layer.kind == "conv" and layer.quant_stop]
