@@ -11,8 +11,8 @@ to the end of phase 14, and phases 12 and 14 run before phase 9, so that
 no timed phase (9, 11, 15-19) runs beside it:
 
   1. card identity (nvidia-smi name and power limit, torch device name);
-  2. build the four kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
-     gemm_probe.cu, shortcut.cu), one nvcc each, all started together, while
+  2. build the five kernel libraries (csrc/qconv.cu, s2d_qconv.cu,
+     gemm_probe.cu, shortcut.cu, spp.cu), one nvcc each, all started together, while
      phase 10 (which launches none of them) runs; print
      each kernel's ptxas registers, spills and static shared memory, and its
      IMMA (int8 mma.sync), IGMMA (int8 wgmma), UTMALDG (a TMA load) and IDP
@@ -72,6 +72,17 @@ no timed phase (9, 11, 15-19) runs beside it:
      K1's also by design: 10 wgmma + 3 halo a flagship forward (s2d 10 + 0,
      with its 3 K2 launches on K2's halo design; int16 13 on its own
      kernel), 67 wgmma + 3 halo + 5 mma.sync a yolov3 forward;
+  6b. YOLOv4 (608, 80 classes; the benchmark's v4-608-b32-offline
+     configuration and its weights and ranges from a seed): K1's mish
+     epilogue, bit for bit against the plain conv, on a conv of each design
+     that takes one (halo stem and stride 2, wgmma 3x3 at stride 1 and 2
+     and 1x1, mma.sync 1x1), each also forced onto mma.sync; spp_kernel
+     against maxpool_u8 and the route's requant at (32, 19, 19, 512) and an
+     odd map; then the Engine on uint8 batches of 2: 110 K1 (85 wgmma, 3
+     halo, 22 mma.sync) + 23 shortcut + 1 spp launches a forward, the heads
+     equal to the layer-by-layer forward's (no spp launch) and image 0's to
+     the CPU engine's, spp_kernel on layer 107's codes equal to layer 113's,
+     predict's launches counted (a main path);
   7. flip TTA and at_size(320) agree between GPU and CPU for yolov3-tiny and
      yolov3, and f1_rows over GPU and CPU predictions gives equal counts;
   8. Servers with the (1, 4, 16) bucket ladder answer seeded requests of
@@ -875,6 +886,138 @@ def phase_engines(Engine, counters, rng):
             f"[{obj.min():.4f}, {obj.max():.4f}]; launches K1 {expected[0]} (wgmma {split[0]}, halo {split[1]}, "
             f"mma.sync {split[2]}, int16 {split[3]}), K2 {expected[1]}, shortcut {expected[2]}")
     return engines, main_launches
+
+
+# YOLOv4's mish convs, one a design that takes one, at the layers' own
+# sizes (as tests/test_torch_yolov4.py::MISH_CASES): (name, routed design,
+# Ci, Co, k, stride, H, W)
+V4_MISH_CASES = (
+    ("layer0 (stem)", "halo", 3, 32, 3, 1, 608, 608),
+    ("layer1 (stride 2)", "halo", 32, 64, 3, 2, 608, 608),
+    ("layer11 (3x3 stride 2)", "wgmma", 64, 128, 3, 2, 304, 304),
+    ("layer16 (3x3)", "wgmma", 64, 64, 3, 1, 152, 152),
+    ("layer25 (1x1)", "wgmma", 256, 128, 1, 1, 76, 76),
+    ("layer2 (1x1)", "mma.sync", 64, 64, 1, 1, 304, 304),
+)
+V4_CELL = "v4-608-b32-offline"  # the benchmark's YOLOv4 cell, whose configuration the phase builds
+V4_LAUNCHES = (110, 0, 23)  # (K1, K2, shortcut) a v4 forward
+V4_SPLIT = (85, 3, 22, 0)  # K1's by design (wgmma, halo, mma.sync, int16)
+
+
+def phase_v4_kernels(cuda_qconv, cuda_spp, qconv, rng, errors) -> None:
+    """K1's mish epilogue in each design against the plain conv, and
+    ``spp_kernel`` against the block's layers, on the card, bit for bit."""
+    from yolo_quantization_tpu_torch.infer.convert import _nudge_np
+    from yolo_quantization_tpu_torch.nn.layers import maxpool_u8, requant_i8
+
+    scale, zp = _nudge_np(-0.29, 7.3)
+    lo, table = qconv.mish_table(scale, zp)
+    mish = (torch.from_numpy(table).cuda(), lo)
+    for name, routed, ci, co, k, stride, h, w in V4_MISH_CASES:
+        x = torch.from_numpy(rng.integers(-128, 128, (2, h, w, ci), dtype=np.int8)).cuda()
+        wt = torch.from_numpy(rng.integers(-127, 128, (k, k, ci, co), dtype=np.int8)).cuda()
+        bias = torch.from_numpy(rng.integers(-4000, 4000, (co,), dtype=np.int32)).cuda()
+        # v about 60 output steps wide: below, inside and above the table
+        m = torch.from_numpy((rng.uniform(0.5, 1.5, co) * 60 / (74.0**2 * (k * k * ci) ** 0.5))
+                             .astype(np.float32)).cuda()
+        args = dict(stride=stride, pad=k // 2, act=qconv.ACT_MISH, out_i8=True)
+        ref = qconv.quantized_conv2d(x, wt, bias, m, -7, None, zp, symmetric=True, mish=mish, **args)
+        design = cuda_qconv.design(ci, k, co, pad=k // 2, w=w)
+        if design != routed:
+            raise AssertionError(f"v4 mish {name}: routed to {design}, expected {routed}")
+        for forced in (None, "mma.sync") if design != "mma.sync" else (None,):
+            reset_counts(cuda_qconv)
+            got = cuda_qconv.quantized_conv2d_cuda(x, wt, bias, m, -7, out_zp_static=zp, mish=mish,
+                                                   _design=forced, **args)
+            ran = forced or design
+            if cuda_qconv.design_launches[ran] != 1:
+                raise AssertionError(f"v4 mish {name}: launched {cuda_qconv.design_launches}, expected {ran}")
+            errors.check("qconv", f"v4 mish {name} ({ran})", got, ref)
+        codes = ref.to(torch.int64) + 128
+        if len(torch.unique(codes)) <= 20 or not (codes == zp).any():
+            raise AssertionError(f"v4 mish {name}: the codes do not cover the table's three parts")
+        log(f"  mish {name:24s} x(2, {h}, {w}, {ci}) w{(k, k, ci, co)} s{stride}: equal ({design}"
+            f"{' and mma.sync forced' if design != 'mma.sync' else ''})")
+    branch_sets = (tuple((size, False, 0.9939, 56) for size in (13, 9, 5, 1)),
+                   ((1, True, 1.0, 77), (5, False, 1.7, 12), (9, True, 1.0, 77)))
+    for shape in ((32, 19, 19, 512), (3, 40, 37, 32)):
+        x = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).cuda()
+        for branches in branch_sets:
+            out_zp = branches[-1][3]
+            before = cuda_spp.launches
+            got = cuda_spp.spp_cuda(x, branches, out_zp)
+            if cuda_spp.launches != before + 1:
+                raise AssertionError(f"spp {shape}: launched {cuda_spp.launches - before}, expected 1")
+            parts = [x if size == 1 else maxpool_u8(x, size, 1, size - 1) for size, *_ in branches]
+            ref = torch.cat([p if ident else requant_i8(p, ratio, z, out_zp)
+                             for p, (_, ident, ratio, z) in zip(parts, branches)], dim=-1)
+            errors.check("spp", f"spp {shape} {[b[0] for b in branches]}", got, ref)
+            log(f"  spp_kernel x{shape} pools {[b[0] for b in branches]}: equal to the block's layers")
+
+
+def v4_engines(Engine, seed: int):
+    """The benchmark's YOLOv4 configuration at 608 from ``seed`` (weights
+    and ranges as the benchmark makes them), on the card and on the CPU."""
+    from portbench import harness, inputs
+    from yolo_quantization_tpu_torch.infer.convert import convert
+    from yolo_quantization_tpu_torch.models.cfg import parse_cfg
+
+    from pathlib import Path
+
+    _, config = harness.cell_files(Path(__file__).resolve().parent, V4_CELL)
+    text = harness.cfg_text(config, 608)
+    ref_net = harness.reference(config).parse(text)
+    program = convert(parse_cfg(text)[0], inputs.float_params(ref_net, seed, "cpu"),
+                      harness.range_rule(config)(ref_net))
+    return (Engine(program, max_det=config["max_det"], device="cuda"),
+            Engine(program, max_det=config["max_det"], device="cpu"), program)
+
+
+def phase_v4(Engine, counters, cuda_spp, rng):
+    """YOLOv4 at 608 through the Engine on the card: launches by kernel and
+    design, the SPP kernel against the block's layers and the heads against
+    the CPU engine's.  Returns predict's (K1, shortcut, spp) launches."""
+    from yolo_quantization_tpu_torch.infer.engine import spp_plan
+
+    t0 = time.perf_counter()
+    eng_gpu, eng_cpu, program = v4_engines(Engine, 2**31 + 17)
+    log(f"  built at 608 in {time.perf_counter() - t0:.1f} s")
+    x_u8 = rng.integers(0, 256, (2, 608, 608, 3), dtype=np.uint8)
+
+    def counted(what, fn, spp_expected):
+        reset_counts(*counters, cuda_spp)
+        out = fn()
+        got, split = tuple(c.launches for c in counters), design_split(counters[0])
+        if got != V4_LAUNCHES or split != V4_SPLIT or cuda_spp.launches != spp_expected:
+            raise AssertionError(f"v4 {what}: (K1, K2, shortcut) {got}, K1 by design {split}, spp "
+                                 f"{cuda_spp.launches}; expected {V4_LAUNCHES}, {V4_SPLIT}, {spp_expected}")
+        return out
+
+    heads = counted("raw_heads", lambda: eng_gpu.raw_heads(x_u8), 1)
+    heads_l, outs = counted("raw_heads(return_outputs)",
+                            lambda: eng_gpu.raw_heads(x_u8, return_outputs=True), 0)
+    for a, b in zip(heads, heads_l):
+        if not np.array_equal(a, b):
+            raise AssertionError("v4: the fused forward's heads differ from the layer-by-layer forward's")
+    block = spp_plan(program)[108]
+    got = cuda_spp.spp_cuda(torch.from_numpy(outs[block.base]).cuda(), block.branches, block.out_zp)
+    if not np.array_equal(got.cpu().numpy(), outs[block.route]):
+        raise AssertionError("v4: spp_kernel differs from the SPP block's layers (108-113)")
+    t1 = time.perf_counter()
+    heads_c = eng_cpu.raw_heads(x_u8[:1])
+    for g, c in zip(heads, heads_c):
+        if not np.array_equal(g[:1], c):
+            raise AssertionError("v4: the card's heads differ from the CPU engine's")
+    log(f"  v4 uint8 batch of 2: heads equal to the layer-by-layer forward's, image 0's to the CPU "
+        f"engine's ({time.perf_counter() - t1:.1f} s on the CPU); layers 108-113 equal to one spp_kernel; "
+        f"{V4_LAUNCHES[0]} K1 ({V4_SPLIT[0]} wgmma, {V4_SPLIT[1]} halo, {V4_SPLIT[2]} mma.sync) + "
+        f"{V4_LAUNCHES[2]} shortcut + 1 spp launches a forward")
+    boxes, obj, cls = counted("predict", lambda: eng_gpu.predict(x_u8), 1)
+    if not (np.isfinite(boxes).all() and np.isfinite(cls).all() and (obj >= 0).all() and (obj <= 1).all()):
+        raise AssertionError("v4 predict: non-finite boxes or objectness outside [0,1]")
+    log(f"  v4 predict: boxes {boxes.shape} finite, objectness in [{obj.min():.4f}, {obj.max():.4f}]; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return V4_LAUNCHES[0], V4_LAUNCHES[2], 1  # predict's: the main path
 
 
 def phase_flip_size_f1(Engine, engines, rng):
@@ -2140,7 +2283,8 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from yolo_quantization_tpu_torch.infer.engine import Engine
     from yolo_quantization_tpu_torch.infer.serving import Detection, Server
-    from yolo_quantization_tpu_torch.ops import _build, cuda_qconv, cuda_s2d, cuda_shortcut, qconv, shortcut
+    from yolo_quantization_tpu_torch.ops import (_build, cuda_qconv, cuda_s2d, cuda_shortcut, cuda_spp, qconv,
+                                                 shortcut)
     from yolo_quantization_tpu_torch.tools import kernel_timings as timings
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
@@ -2174,6 +2318,7 @@ def main(argv: list[str]) -> int:
     cuda_qconv.build()
     cuda_s2d.build()
     cuda_shortcut.build()
+    cuda_spp.build()
     probe.build()
     log(f"  {', '.join(f'csrc/{n}.cu' for n in libs)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -2219,6 +2364,10 @@ def main(argv: list[str]) -> int:
     phase("phase 6: engines (yolov3-tiny 416, 5 classes; yolov3 416, 80 classes) GPU vs CPU")
     engines, main_launches = phase_engines(Engine, counters, rng)
 
+    phase("phase 6b: YOLOv4 (608, 80 classes): mish in K1 by design, spp_kernel, the Engine GPU vs CPU")
+    phase_v4_kernels(cuda_qconv, cuda_spp, qconv, np.random.default_rng(19), errors)
+    v4_launches = phase_v4(Engine, counters, cuda_spp, np.random.default_rng(23))
+
     phase("phase 7: flip TTA, at_size(320), f1_rows")
     phase_flip_size_f1(Engine, engines, rng)
 
@@ -2251,7 +2400,7 @@ def main(argv: list[str]) -> int:
     capstone_dir.cleanup()
 
     phase("phase 9: timings")
-    k1, k2, k3, sc = timings.time_all(engines, probe_results, card, rng, v3_batches=(16,))
+    k1, k2, k3, sc, sp = timings.time_all(engines, probe_results, card, rng, v3_batches=(16,))
     timings.time_k1_v2(cuda_qconv, qconv, rng_v2, card)
 
     phase("phase 11: the Trainer (yolov3-tiny 416 batch 16; yolov3 416 batch 8; yolov2-tiny 416 batch 16)")
@@ -2289,22 +2438,25 @@ def main(argv: list[str]) -> int:
         f"yolov2-tiny darknet-path server {v2_launches[0]}, command line {cli_launches}, "
         f"TP engine {tp_launches}, WordTree engine {tree_launches}, parity harness {parity_launches[0]}, "
         f"benchmarks and dry run {bench_launches[0]} (shortcut {bench_launches[2]}), accuracy loop and "
-        f"capstones {capstone_launches[0]} (shortcut {capstone_launches[2]})")
+        f"capstones {capstone_launches[0]} (shortcut {capstone_launches[2]}), YOLOv4 engine {v4_launches[0]} "
+        f"(shortcut {v4_launches[1]}, spp {v4_launches[2]})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         k1.entry("qconv", "yolo_quantization_tpu_torch/csrc/qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:173",
                  launches[0] + v3_launches[0] + v2_launches[0] + cli_launches + tp_launches + tree_launches
-                 + parity_launches[0] + bench_launches[0] + capstone_launches[0],
+                 + parity_launches[0] + bench_launches[0] + capstone_launches[0] + v4_launches[0],
                  errors.worst["qconv"]),
         k2.entry("s2d_qconv", "yolo_quantization_tpu_torch/csrc/s2d_qconv.cu",
                  "yolo_quantization_tpu/ops/pallas_qconv.py:356", main_launches["s2d"][1],
                  errors.worst["s2d_qconv"]),
         sc.entry("shortcut", "yolo_quantization_tpu_torch/csrc/shortcut.cu",
                  "yolo_quantization_tpu/infer/engine.py:428-469",
-                 main_launches["v3"][2] + bench_launches[2] + capstone_launches[2],
+                 main_launches["v3"][2] + bench_launches[2] + capstone_launches[2] + v4_launches[1],
                  errors.worst["shortcut"]),
+        sp.entry("spp", "yolo_quantization_tpu_torch/csrc/spp.cu",
+                 "yolo_quantization_tpu/nn/layers.py:164", v4_launches[2], errors.worst["spp"]),
         k3["a"].entry("orientation_a", "yolo_quantization_tpu_torch/csrc/gemm_probe.cu",
                       "scripts/mxu_orientation_probe.py:47", probe_launches["orientation_a"],
                       errors.worst["orientation_a"]),

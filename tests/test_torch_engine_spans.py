@@ -5,6 +5,7 @@ under the names ``tools/profile_train.py`` reads."""
 
 import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,8 +14,12 @@ from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile
 
 from yolo_quantization_tpu_torch.core import quant
+from yolo_quantization_tpu_torch.infer.convert import convert
 from yolo_quantization_tpu_torch.infer.engine import Engine
 from yolo_quantization_tpu_torch.models import presets
+from yolo_quantization_tpu_torch.models.cfg import parse_cfg
+from yolo_quantization_tpu_torch.nn.graph import init_params_numpy, init_quant_state
+from yolo_quantization_tpu_torch.ops import cuda_spp
 from yolo_quantization_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -128,6 +133,49 @@ def test_answers_equal_with_the_profiler_on(engine, images, flip):
     assert len(on) == len(off) == 3
     for a, b in zip(on, off):
         np.testing.assert_array_equal(a, b)
+
+
+def v4_engine(device: str) -> Engine:
+    """YOLOv4 (the benchmark's configuration) at 64 on ``device``."""
+    config = Path(__file__).resolve().parents[1] / "portbench/configs/yolov4-coco80-608.json"
+    lines = json.loads(config.read_text())["cfg"]
+    text = "\n".join(f"{ln.split('=')[0]}={SIZE}" if ln.startswith(("width=", "height=")) else ln
+                     for ln in lines)
+    net, _ = parse_cfg(text)
+    quant_ranges = {k: {"min": -0.3, "max": 6.0} for k in init_quant_state(net)}
+    quant_ranges["input"] = {"min": 0.0, "max": 1.0}
+    return Engine(convert(net, init_params_numpy(0, net), quant_ranges), max_det=32, device=device)
+
+
+def spp_ranges(device, images, tmp_path):
+    """The Engine's ranges of one predict of YOLOv4, and its SPP kernel
+    launches."""
+    v4 = v4_engine(device)
+    before = cuda_spp.launches
+    with every_thread() as prof:
+        v4.predict(images)
+    spans = ranges(prof, tmp_path, "engine.")
+    assert len({s["tid"] for s in spans}) == 1
+    return [(s["name"], s["parent"]) for s in spans], cuda_spp.launches - before
+
+
+def test_the_spp_block_is_a_range_inside_the_layers(images, tmp_path):
+    """YOLOv4's SPP block (the benchmark's configuration, at 64) runs under
+    ``engine.spp``, inside ``engine.layers``: off the card as its layers,
+    with no kernel launch."""
+    spans, launches = spp_ranges("cpu", images, tmp_path)
+    assert spans == ENQUEUE[:4] + [("engine.spp", "engine.layers")] + ENQUEUE[4:] + RESOLVE
+    assert launches == 0
+
+
+@pytest.mark.cuda
+def test_the_spp_kernel_is_a_range_inside_the_layers(images, tmp_path):
+    """On the card the range holds the block's one ``spp_kernel`` launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    spans, launches = spp_ranges("cuda", images, tmp_path)
+    assert spans == ENQUEUE[:4] + [("engine.spp", "engine.layers")] + ENQUEUE[4:] + RESOLVE
+    assert launches == 1
 
 
 def test_training_ranges_keep_their_names(tmp_path):

@@ -10,6 +10,16 @@
 // even, never roundf; rint_clamped), then the zero point and a clamp in
 // float before the narrowing cast.  The _rn intrinsics keep nvcc from
 // contracting any multiply and add into an FMA.
+//
+// Mish (YOLOv4) is a table on the rounded pre-activation r = rint(v), built
+// in float64 at conversion (ops/qconv.py::mish_table): T[r - lo] inside it,
+// the zero point below it, clamp(r + zp) above it.  It is requant<true>; a
+// kernel chooses between requant<true> and requant<false> once, for its
+// whole epilogue, by a runtime branch (with_act), so every design takes mish
+// and every other activation's epilogue is the straight-line code it was (a
+// mish branch in each element's requant cost yolov3 at 416, batch 64, 9% of
+// its images/s on an H100).  K2 refuses mish: its phase max runs before the
+// epilogue, and the table is not monotone.
 
 #pragma once
 
@@ -21,6 +31,7 @@ namespace yq {
 constexpr int ACT_LEAKY = 1;
 constexpr int ACT_RELU = 2;
 constexpr int ACT_RELU6 = 3;
+constexpr int ACT_MISH = 4;
 
 // What the epilogue reads: bias/m are (Co,) (bm_stride 0) or per image
 // (N, Co) (bm_stride Co), read on the device by pointer.
@@ -32,6 +43,9 @@ struct Epilogue {
   int exact_leaky;  // darknet's double-rounded leaky, round(0.1 * round(v))
   int out_i8;       // shifted int8 codes, else uint8
   int out_zp;       // uint8-domain output zero point
+  // ACT_MISH: the uint8 codes T[r - t_lo] for t_lo <= r < t_lo + t_len
+  const uint8_t* table = nullptr;
+  int t_lo = 0, t_len = 0;
 };
 
 // 1.5 * 2^23 (bits 0x4B400000): adding it to a float of magnitude below
@@ -69,19 +83,47 @@ __device__ __forceinline__ float rint_clamped(float v) {
 // the code's).  Equal to rintf, a float add and a clamp and a truncating
 // cast for every input: past 2^22 both sides clamp to the same bound.  The
 // leaky slope as max(v, 0.1 v) (the larger for v < 0, v itself for v >= 0).
+template <bool MISH = false>
 __device__ __forceinline__ int requant(int acc, int bias, float m, const Epilogue& e,
                                        const Clamp& c) {
   // int32 add (wrapping, as XLA's), then f32, then the multiply
   const int a = (int)((unsigned)acc + (unsigned)bias);
   const float vf = __fmul_rn(__int2float_rn(a), m);
   float t;
-  if (e.act == ACT_LEAKY && e.exact_leaky) {  // round(0.1 * round(v)) below 0
+  if constexpr (MISH) {
+    // j exact: r is an integer below 2^22 in magnitude, or past 2^21 on
+    // vf's side, below or above the table alike
+    const float r = rint_clamped(vf);
+    const float j = __fsub_rn(r, (float)e.t_lo);
+    if (j < 0.f) return (int)c.zps;  // the zero point, as a code of the domain
+    if (j < (float)e.t_len) {
+      const int code = __ldg(e.table + (int)j);
+      return e.out_i8 ? code - 128 : code;
+    }
+    t = __fadd_rn(r, kRoundMagic);
+  } else if (e.act == ACT_LEAKY && e.exact_leaky) {  // round(0.1 * round(v)) below 0
     const float v = rint_clamped(vf);
     t = __fadd_rn(v < 0.f ? __fmul_rn(v, 0.1f) : v, kRoundMagic);
   } else {
     t = __fadd_rn(e.act == ACT_LEAKY ? fmaxf(vf, __fmul_rn(vf, 0.1f)) : vf, kRoundMagic);
   }
   return __float_as_int(fminf(fmaxf(__fadd_rn(t, c.zps), c.lo_m), c.hi_m)) - kRoundMagicBits;
+}
+
+// The epilogue's one choice of a kernel: f(Mish<true>{}) where it is mish,
+// else f(Mish<false>{}); f's code calls requant<decltype(tag)::value>.
+template <bool B>
+struct Mish {
+  static constexpr bool value = B;
+};
+
+template <class F>
+__device__ __forceinline__ void with_act(const Epilogue& e, F&& f) {
+  if (e.act == ACT_MISH) {
+    f(Mish<true>{});
+  } else {
+    f(Mish<false>{});
+  }
 }
 
 constexpr int kMaxDevices = 64;  // per-device launch facts

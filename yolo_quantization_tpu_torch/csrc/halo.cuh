@@ -438,44 +438,47 @@ __global__ void __launch_bounds__(kHaloThreads, 4)
     // and w_zp read once, for the thread's MI / 2 pooled windows or 2 MI rows
     const size_t bm = (size_t)img * p.e.bm_stride;
     uint8_t* const stage = sm + L.stage_off;
+    with_act(p.e, [&](auto mish) {
+      constexpr bool MISH = decltype(mish)::value;
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const int o = 8 * ni + 2 * tq;
-      const int b0 = __ldg(p.e.bias + bm + o), b1 = __ldg(p.e.bias + bm + o + 1);
-      const float m0 = __ldg(p.e.m + bm + o), m1 = __ldg(p.e.m + bm + o + 1);
-      const unsigned z0 = ASYM ? (unsigned)__ldg(p.w_zp + o) : 0u, z1 = ASYM ? (unsigned)__ldg(p.w_zp + o + 1) : 0u;
-      // acc - w_zp[o] * patchsum in wrapping int32, as XLA's
-      auto corrected = [&](int mi, int hh, int e) {
-        return (int)((unsigned)acc[mi][ni][2 * hh + e] - (e ? z1 : z0) * (unsigned)ps[mi][hh]);
-      };
-      auto pair = [&](int a0, int a1) {
-        return (uint16_t)((uint32_t)(uint8_t)requant(a0, b0, m0, p.e, cl) |
-                          (uint32_t)(uint8_t)requant(a1, b1, m1, p.e, cl) << 8);
-      };
+      for (int ni = 0; ni < NT; ++ni) {
+        const int o = 8 * ni + 2 * tq;
+        const int b0 = __ldg(p.e.bias + bm + o), b1 = __ldg(p.e.bias + bm + o + 1);
+        const float m0 = __ldg(p.e.m + bm + o), m1 = __ldg(p.e.m + bm + o + 1);
+        const unsigned z0 = ASYM ? (unsigned)__ldg(p.w_zp + o) : 0u, z1 = ASYM ? (unsigned)__ldg(p.w_zp + o + 1) : 0u;
+        // acc - w_zp[o] * patchsum in wrapping int32, as XLA's
+        auto corrected = [&](int mi, int hh, int e) {
+          return (int)((unsigned)acc[mi][ni][2 * hh + e] - (e ? z1 : z0) * (unsigned)ps[mi][hh]);
+        };
+        auto pair = [&](int a0, int a1) {
+          return (uint16_t)((uint32_t)(uint8_t)requant<MISH>(a0, b0, m0, p.e, cl) |
+                            (uint32_t)(uint8_t)requant<MISH>(a1, b1, m1, p.e, cl) << 8);
+        };
 #pragma unroll
-      for (int u = 0; u < MI / 2; ++u) {
-        if (POOL) {  // window g of group u: tile window (2 u + g / 4, 4 warp + g % 4) of TH / 2 x 16
-          int a0 = INT_MIN, a1 = INT_MIN;
+        for (int u = 0; u < MI / 2; ++u) {
+          if (POOL) {  // window g of group u: tile window (2 u + g / 4, 4 warp + g % 4) of TH / 2 x 16
+            int a0 = INT_MIN, a1 = INT_MIN;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            a0 = max(a0, corrected(2 * u + (q >> 1), q & 1, 0));
-            a1 = max(a1, corrected(2 * u + (q >> 1), q & 1, 1));
-          }
-          *reinterpret_cast<uint16_t*>(stage + ((2 * u + (g >> 2)) * 16 + 4 * warp + (g & 3)) * L.stage_stride + o) =
-              pair(a0, a1);
-        } else {  // row 16 h + 8 hh + g of group u: pixel (MI / 2 warp + u, 16 h + 8 hh + g)
+            for (int q = 0; q < 4; ++q) {
+              a0 = max(a0, corrected(2 * u + (q >> 1), q & 1, 0));
+              a1 = max(a1, corrected(2 * u + (q >> 1), q & 1, 1));
+            }
+            *reinterpret_cast<uint16_t*>(stage + ((2 * u + (g >> 2)) * 16 + 4 * warp + (g & 3)) * L.stage_stride + o) =
+                pair(a0, a1);
+          } else {  // row 16 h + 8 hh + g of group u: pixel (MI / 2 warp + u, 16 h + 8 hh + g)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+            for (int h = 0; h < 2; ++h) {
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int pl = ((MI / 2) * warp + u) * kHaloTW + 16 * h + 8 * hh + g;
-              *reinterpret_cast<uint16_t*>(stage + pl * L.stage_stride + o) =
-                  pair(corrected(2 * u + h, hh, 0), corrected(2 * u + h, hh, 1));
+              for (int hh = 0; hh < 2; ++hh) {
+                const int pl = ((MI / 2) * warp + u) * kHaloTW + 16 * h + 8 * hh + g;
+                *reinterpret_cast<uint16_t*>(stage + pl * L.stage_stride + o) =
+                    pair(corrected(2 * u + h, hh, 0), corrected(2 * u + h, hh, 1));
+              }
             }
           }
         }
       }
-    }
+    });
     if (border) fence_proxy_async();  // the zero-point writes precede TMA's next writes to the buffer
     __syncthreads();                  // the stage is whole; nothing reads the halo buffer any more
     if (t == 0 && tile + 2 * (int)gridDim.x < tiles) fetch(tile + 2 * gridDim.x, buf);

@@ -464,50 +464,55 @@ __global__ void __launch_bounds__(WM * WN * 32, MODE == kStem && !ASYM ? 4 : 1)
   auto correct = [&](int a, int o, int patchsum) {
     return ASYM ? (int)((unsigned)a - (unsigned)p.w_zp[o] * (unsigned)patchsum) : a;
   };
-  if (p.pool) {
-    const int phw = (p.h_out >> 1) * (p.w_out >> 1);
+  yq::with_act(p.e, [&](auto mish) {
+    constexpr bool MISH = decltype(mish)::value;
+    if (p.pool) {
+      const int phw = (p.h_out >> 1) * (p.w_out >> 1);
 #pragma unroll
-    for (int jg = 0; jg < MI / 2; ++jg) {
-      const int win = ((m0 + wm0) >> 2) + jg * 8 + g;
-      if (win >= p.outs) continue;
-      const size_t bm = (size_t)(win / phw) * p.e.bm_stride;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int o = n0 + wn0 + ni * 8 + 2 * tq + j;
-          if (o >= p.co) continue;
-          const int q0 = correct(acc[2 * jg][ni][j], o, ps[2 * jg][0]);
-          const int q1 = correct(acc[2 * jg][ni][2 + j], o, ps[2 * jg][1]);
-          const int q2 = correct(acc[2 * jg + 1][ni][j], o, ps[2 * jg + 1][0]);
-          const int q3 = correct(acc[2 * jg + 1][ni][2 + j], o, ps[2 * jg + 1][1]);
-          const int a = max(max(q0, q1), max(q2, q3));
-          p.out[(size_t)win * p.co + o] = (uint8_t)yq::requant(a, p.e.bias[bm + o], p.e.m[bm + o], p.e, cl);
-        }
-      }
-    }
-  } else {
-    const int hw = p.h_out * p.w_out;
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = m0 + wm0 + mi * 16 + g + 8 * hh;
-        if (r >= p.outs) continue;
-        const size_t bm = (size_t)(r / hw) * p.e.bm_stride;
+      for (int jg = 0; jg < MI / 2; ++jg) {
+        const int win = ((m0 + wm0) >> 2) + jg * 8 + g;
+        if (win >= p.outs) continue;
+        const size_t bm = (size_t)(win / phw) * p.e.bm_stride;
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int o = n0 + wn0 + ni * 8 + 2 * tq + j;
             if (o >= p.co) continue;
-            const int a = correct(acc[mi][ni][2 * hh + j], o, ps[mi][hh]);
-            p.out[(size_t)r * p.co + o] = (uint8_t)yq::requant(a, p.e.bias[bm + o], p.e.m[bm + o], p.e, cl);
+            const int q0 = correct(acc[2 * jg][ni][j], o, ps[2 * jg][0]);
+            const int q1 = correct(acc[2 * jg][ni][2 + j], o, ps[2 * jg][1]);
+            const int q2 = correct(acc[2 * jg + 1][ni][j], o, ps[2 * jg + 1][0]);
+            const int q3 = correct(acc[2 * jg + 1][ni][2 + j], o, ps[2 * jg + 1][1]);
+            const int a = max(max(q0, q1), max(q2, q3));
+            p.out[(size_t)win * p.co + o] =
+                (uint8_t)yq::requant<MISH>(a, p.e.bias[bm + o], p.e.m[bm + o], p.e, cl);
+          }
+        }
+      }
+    } else {
+      const int hw = p.h_out * p.w_out;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + wm0 + mi * 16 + g + 8 * hh;
+          if (r >= p.outs) continue;
+          const size_t bm = (size_t)(r / hw) * p.e.bm_stride;
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int o = n0 + wn0 + ni * 8 + 2 * tq + j;
+              if (o >= p.co) continue;
+              const int a = correct(acc[mi][ni][2 * hh + j], o, ps[mi][hh]);
+              p.out[(size_t)r * p.co + o] =
+                  (uint8_t)yq::requant<MISH>(a, p.e.bias[bm + o], p.e.m[bm + o], p.e, cl);
+            }
           }
         }
       }
     }
-  }
+  });
 }
 
 template <int BM, int BN, int WM, int WN, bool ASYM, int MODE = kVec>
@@ -760,52 +765,55 @@ __global__ void __launch_bounds__((WGS + 1) * 128, 1)
     static_assert(BM * SST <= S * T::A_BYTES, "the staged tile fits the A ring");
     uint8_t* const stage = wsmem + (a_ring - raw);
     const yq::Clamp cl = yq::clamp_of(p.e);
-    auto code = [&](int a, int o, int patchsum, size_t bm) {
-      if (ASYM) a = (int)((unsigned)a - (unsigned)__ldg(p.w_zp + o) * (unsigned)patchsum);
-      return (uint8_t)yq::requant(a, __ldg(p.e.bias + bm + o), __ldg(p.e.m + bm + o), p.e, cl);
-    };
-    if constexpr (MT == 2) {  // the fused pool (the only use of two m64 tiles a warpgroup)
-      const int wl = wg * 32 + 8 * warp + g;  // the window within the tile
-      const int win = (m0 >> 2) + wl;
-      if (win < p.outs) {
-        const int phw = (p.h_out >> 1) * (p.w_out >> 1);
-        const size_t bm = (size_t)(win / phw) * p.e.bm_stride;
+    yq::with_act(p.e, [&](auto mish) {
+      constexpr bool MISH = decltype(mish)::value;
+      auto code = [&](int a, int o, int patchsum, size_t bm) {
+        if (ASYM) a = (int)((unsigned)a - (unsigned)__ldg(p.w_zp + o) * (unsigned)patchsum);
+        return (uint8_t)yq::requant<MISH>(a, __ldg(p.e.bias + bm + o), __ldg(p.e.m + bm + o), p.e, cl);
+      };
+      if constexpr (MT == 2) {  // the fused pool (the only use of two m64 tiles a warpgroup)
+        const int wl = wg * 32 + 8 * warp + g;  // the window within the tile
+        const int win = (m0 >> 2) + wl;
+        if (win < p.outs) {
+          const int phw = (p.h_out >> 1) * (p.w_out >> 1);
+          const size_t bm = (size_t)(win / phw) * p.e.bm_stride;
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
+          for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int o = n0 + 8 * j + 2 * tq + e;
-            if (o >= p.co) continue;
-            int a = INT_MIN;  // the max over the window's pixels (dy, dx) = (q / 2, q % 2)
+            for (int e = 0; e < 2; ++e) {
+              const int o = n0 + 8 * j + 2 * tq + e;
+              if (o >= p.co) continue;
+              int a = INT_MIN;  // the max over the window's pixels (dy, dx) = (q / 2, q % 2)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int v = acc[q >> 1][4 * j + 2 * (q & 1) + e];
-              a = max(a, ASYM ? (int)((unsigned)v - (unsigned)__ldg(p.w_zp + o) * (unsigned)ps[q >> 1][q & 1])
-                              : v);
+              for (int q = 0; q < 4; ++q) {
+                const int v = acc[q >> 1][4 * j + 2 * (q & 1) + e];
+                a = max(a, ASYM ? (int)((unsigned)v - (unsigned)__ldg(p.w_zp + o) * (unsigned)ps[q >> 1][q & 1])
+                                : v);
+              }
+              stage[wl * SST + 8 * j + 2 * tq + e] =
+                  (uint8_t)yq::requant<MISH>(a, __ldg(p.e.bias + bm + o), __ldg(p.e.m + bm + o), p.e, cl);
             }
-            stage[wl * SST + 8 * j + 2 * tq + e] =
-                (uint8_t)yq::requant(a, __ldg(p.e.bias + bm + o), __ldg(p.e.m + bm + o), p.e, cl);
+          }
+        }
+      } else {
+        const int hw = p.h_out * p.w_out;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rl = row0 + 16 * warp + 8 * hh + g;
+          const int r = m0 + rl;
+          if (r >= p.outs) continue;
+          const size_t bm = (size_t)(r / hw) * p.e.bm_stride;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int o = n0 + 8 * j + 2 * tq + e;
+              if (o < p.co) stage[rl * SST + 8 * j + 2 * tq + e] = code(acc[0][4 * j + 2 * hh + e], o, ps[0][hh], bm);
+            }
           }
         }
       }
-    } else {
-      const int hw = p.h_out * p.w_out;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int rl = row0 + 16 * warp + 8 * hh + g;
-        const int r = m0 + rl;
-        if (r >= p.outs) continue;
-        const size_t bm = (size_t)(r / hw) * p.e.bm_stride;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int o = n0 + 8 * j + 2 * tq + e;
-            if (o < p.co) stage[rl * SST + 8 * j + 2 * tq + e] = code(acc[0][4 * j + 2 * hh + e], o, ps[0][hh], bm);
-          }
-        }
-      }
-    }
+    });
     yq::named_barrier_sync(1, WGS * 128);
     // the tile's rows (windows with the pool), BN codes each, to out
     constexpr int TROWS = MT == 2 ? WGS * 32 : BM;
@@ -1133,36 +1141,39 @@ __global__ void __launch_bounds__(kI16Threads) qconv_i16_kernel(const Params p) 
   }
 
   const yq::Clamp cl = yq::clamp_of(p.e);
+  yq::with_act(p.e, [&](auto mish) {
+    constexpr bool MISH = decltype(mish)::value;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = o0 + cg + CG * j;
-    if (o >= p.co) continue;
-    if (ASYM) {
-      const unsigned zw = (unsigned)p.w_zp[o];
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + cg + CG * j;
+      if (o >= p.co) continue;
+      if (ASYM) {
+        const unsigned zw = (unsigned)p.w_zp[o];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = (int)((unsigned)acc[j][q] - zw * (unsigned)ps[q]);
-    }
-    const int bias = p.e.bias[(size_t)img * p.e.bm_stride + o];
-    const float m = p.e.m[(size_t)img * p.e.bm_stride + o];
-    if (p.pool) {
-      const int ph = p.h_out / 2, pw = p.w_out / 2;
-      const int oy = y0 / 2 + wy, ox = x0 / 2 + wx;
-      if (oy < ph && ox < pw) {
-        const int a = max(max(acc[j][0], acc[j][1]), max(acc[j][2], acc[j][3]));
-        p.out[(((size_t)img * ph + oy) * pw + ox) * p.co + o] =
-            (uint8_t)yq::requant(a, bias, m, p.e, cl);
+        for (int q = 0; q < 4; ++q) acc[j][q] = (int)((unsigned)acc[j][q] - zw * (unsigned)ps[q]);
       }
-    } else {
+      const int bias = p.e.bias[(size_t)img * p.e.bm_stride + o];
+      const float m = p.e.m[(size_t)img * p.e.bm_stride + o];
+      if (p.pool) {
+        const int ph = p.h_out / 2, pw = p.w_out / 2;
+        const int oy = y0 / 2 + wy, ox = x0 / 2 + wx;
+        if (oy < ph && ox < pw) {
+          const int a = max(max(acc[j][0], acc[j][1]), max(acc[j][2], acc[j][3]));
+          p.out[(((size_t)img * ph + oy) * pw + ox) * p.co + o] =
+              (uint8_t)yq::requant<MISH>(a, bias, m, p.e, cl);
+        }
+      } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int oy = y0 + 2 * wy + (q >> 1), ox = x0 + 2 * wx + (q & 1);
-        if (oy < p.h_out && ox < p.w_out) {
-          p.out[(((size_t)img * p.h_out + oy) * p.w_out + ox) * p.co + o] =
-              (uint8_t)yq::requant(acc[j][q], bias, m, p.e, cl);
+        for (int q = 0; q < 4; ++q) {
+          const int oy = y0 + 2 * wy + (q >> 1), ox = x0 + 2 * wx + (q & 1);
+          if (oy < p.h_out && ox < p.w_out) {
+            p.out[(((size_t)img * p.h_out + oy) * p.w_out + ox) * p.co + o] =
+                (uint8_t)yq::requant<MISH>(acc[j][q], bias, m, p.e, cl);
+          }
         }
       }
     }
-  }
+  });
 }
 
 template <int CG, int S, bool ASYM>
@@ -1197,15 +1208,19 @@ cudaError_t launch_i16_tile(const Params& p, int n, cudaStream_t s) {
 // design 0 routes (halo_takes, then wgmma_route), 1 forces mma.sync, 2
 // wgmma and 4 halo on a conv that design takes (for comparing designs; the
 // engine passes 0).  *route (if not null) receives the design launched: 1
-// mma.sync, 2 wgmma, 3 the int16 kernel, 4 halo.
+// mma.sync, 2 wgmma, 3 the int16 kernel, 4 halo.  act 4 (mish) reads the
+// uint8 table (t_lo, t_len) of ops/qconv.py::mish_table and takes no
+// fused pool (mish is not monotone, so the pool cannot run first).
 extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const void* x_zp_img,
                         const void* bias, const void* m, void* out, int n, int h, int w_in,
                         int ci, int co, int k, int pad, int stride, int x_zp, int out_zp,
                         int act, int exact_leaky, int out_i8, int fuse_pool, int bm_per_image,
-                        int carrier16, int design, int* route, void* stream) {
+                        int carrier16, int design, const void* table, int t_lo, int t_len,
+                        int* route, void* stream) {
   if (n < 1 || n > 65535 || k < 1 || k > kMaxK || ci < 1 || co < 1 || pad < 0 ||
       (stride != 1 && stride != 2) || (fuse_pool && stride != 1) || h + 2 * pad < k ||
-      w_in + 2 * pad < k) {
+      w_in + 2 * pad < k ||
+      (act == yq::ACT_MISH && (fuse_pool || t_len < 0 || (t_len > 0 && table == nullptr)))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -1220,6 +1235,9 @@ extern "C" int yq_qconv(const void* x, const void* w, const void* w_zp, const vo
   p.e.exact_leaky = exact_leaky;
   p.e.out_i8 = out_i8;
   p.e.out_zp = out_zp;
+  p.e.table = static_cast<const uint8_t*>(table);
+  p.e.t_lo = t_lo;
+  p.e.t_len = t_len;
   p.out = static_cast<uint8_t*>(out);
   p.h = h;
   p.w_in = w_in;

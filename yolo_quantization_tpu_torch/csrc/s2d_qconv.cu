@@ -452,8 +452,8 @@ extern "C" int yq_s2d_qconv(const void* x, const void* w, const void* x_zp_img,
                             int w_in, int c, int o, int x_zp, int out_zp, int act,
                             int exact_leaky, int bm_per_image, int phases, int* route, void* stream) {
   if (n < 1 || n > 65535 || c < 1 || o < 1 || h < 2 || w_in < 2 || (h & 1) || (w_in & 1) ||
-      (phases != 0 && phases != 1 && phases != 4)) {
-    return (int)cudaErrorInvalidValue;
+      (phases != 0 && phases != 1 && phases != 4) || act == yq::ACT_MISH) {
+    return (int)cudaErrorInvalidValue;  // mish: the phase max runs before the epilogue
   }
   const long long rows = (long long)n * (h / 2) * (w_in / 2);
   if (rows > INT_MAX - 256 || (long long)n * h * w_in * c > INT_MAX || 36LL * c > INT_MAX / 2 ||

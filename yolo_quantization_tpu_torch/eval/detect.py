@@ -25,6 +25,7 @@ def decode_head(
     num_classes: int,
     net_w: int,
     net_h: int,
+    scale_x_y: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode one YOLO head.
 
@@ -32,6 +33,10 @@ def decode_head(
     pixels.  Returns boxes (N, H*W*A, 4) center-format relative to the
     network input, objectness (N, H*W*A) and class probs (N, H*W*A, C):
     bx=(i+sig(tx))/W, by=(j+sig(ty))/H, bw=exp(tw)*aw/net_w, bh=exp(th)*ah/net_h.
+    With ``scale_x_y`` s other than 1 (YOLOv4), sig(t) becomes
+    s sig(t) - (s - 1) / 2 (AlexeyAB's forward_yolo_layer); s rides in the
+    launches as a scalar, so nothing is copied to the device and the
+    enqueue never waits.  At s = 1 the ops are those of the formula above.
     """
     n, h, w, _ = raw.shape
     a = anchors.shape[0]
@@ -41,8 +46,12 @@ def decode_head(
     cls = torch.sigmoid(raw[..., 5:])
     cols = torch.arange(w, dtype=torch.float32, device=raw.device).reshape(1, 1, w, 1)
     rows = torch.arange(h, dtype=torch.float32, device=raw.device).reshape(1, h, 1, 1)
-    bx = (torch.sigmoid(tx) + cols) / w
-    by = (torch.sigmoid(ty) + rows) / h
+    sx, sy = torch.sigmoid(tx), torch.sigmoid(ty)
+    if scale_x_y != 1.0:
+        shift = -(scale_x_y - 1.0) / 2.0
+        sx, sy = sx * scale_x_y + shift, sy * scale_x_y + shift
+    bx = (sx + cols) / w
+    by = (sy + rows) / h
     bw = torch.exp(tw) * anchors[:, 0].reshape(1, 1, 1, a) / net_w
     bh = torch.exp(th) * anchors[:, 1].reshape(1, 1, 1, a) / net_h
     boxes = torch.stack([bx, by, bw, bh], dim=-1)
@@ -160,7 +169,8 @@ def decode_all_heads(heads, net, anchors=None):
     parts = []
     for raw, spec, anc in zip(heads, head_specs, anchors):
         if isinstance(spec, YoloSpec):
-            parts.append(decode_head(raw, anc, spec.classes, net.width, net.height))
+            parts.append(decode_head(raw, anc, spec.classes, net.width, net.height,
+                                     spec.scale_x_y))
         elif isinstance(spec, RegionSpec):
             parts.append(decode_region_head(raw, spec, anc))
         else:

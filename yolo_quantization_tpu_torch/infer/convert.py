@@ -10,6 +10,9 @@ the engine runs, exactly as ``yolo_quantization_tpu/infer/convert.py`` does:
                        one int32 bias
                        requant multiplier M = S1*S2/S3 as f32 and as the
                        gemmlowp (M0, shift) pair
+                       mish: the epilogue's table on the rounded
+                       pre-activation (``ops/qconv.py::mish_table``), in
+                       ``mish_table`` and ``mish_lo``
   maxpool/upsample:    output scale := input scale
   route:               multi-input concat re-quantizes each branch onto the
                        learned common grid
@@ -37,7 +40,7 @@ from yolo_quantization_tpu_torch.nn.graph import (
     UpsampleSpec,
     YoloSpec,
 )
-from yolo_quantization_tpu_torch.ops.qconv import ACTIVATION_BY_NAME, fold_static_bias
+from yolo_quantization_tpu_torch.ops.qconv import CONV_ACTIVATION_BY_NAME, fold_static_bias, mish_table
 
 BN_EPS = 1e-6  # darknet adds eps to sqrt(var)
 
@@ -226,6 +229,10 @@ def convert(
                 "w_scale": s_w.astype(np.float32),
                 "w_zp_u8": zp_w.astype(np.uint8),
             }
+            if s.activation == "mish":
+                lo, table = mish_table(so, zo)
+                arrays[i]["mish_table"] = table
+                arrays[i]["mish_lo"] = np.int32(lo)
             if i == 0:
                 # raw ingredients of the per-image (dynamic_input) rebuild
                 arrays[i]["bias_f"] = bias.astype(np.float32)
@@ -239,6 +246,7 @@ def convert(
             if (
                 symmetric_weights
                 and not s.quant_stop
+                and s.activation != "mish"  # K2 pools before the epilogue
                 and s.size == 3 and s.stride == 1 and s.pad == 1
                 and in_ch <= 32
                 and oh % 2 == 0 and ow % 2 == 0
@@ -256,7 +264,7 @@ def convert(
                     spec=s,
                     out_scale=so,
                     out_zp=zo,
-                    act=ACTIVATION_BY_NAME[s.activation],
+                    act=CONV_ACTIVATION_BY_NAME[s.activation],
                     quant_stop=s.quant_stop,
                     symmetric_w=symmetric_weights,
                     in_scales=(qin,),

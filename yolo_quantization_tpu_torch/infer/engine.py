@@ -8,6 +8,10 @@ CUDA kernel (``ops/cuda_qconv.py``, and with ``use_s2d`` the stem's
 (``ops/cuda_shortcut.py``), each with its plain PyTorch version on the CPU;
 maxpool/route/upsample stay on codes, the quant_stop heads are dequantized,
 and yolo decode + top-k run on the device before the host gets the result.
+A conv's mish (YOLOv4) is its epilogue's table (``ops/qconv.py::mish_table``);
+an SPP block (stride-1 pools over one map and the route that concatenates
+them, ``spp_plan``) runs as one kernel on the card (``ops/cuda_spp.py``)
+and as its layers off it.
 
 Coverage: qconv (stride 1 and 2, any weights), maxpool, upsample, route
 (with requant), the integer shortcut (int8 operands; linear, leaky, relu,
@@ -29,12 +33,14 @@ Under a profiler each stage of a request is a range of its own
 the device, and flip's doubled batch), ``engine.quantize`` (the input to
 int8 codes), ``engine.layers`` (every layer of the forward),
 ``engine.decode`` (the heads' decode, and flip's head averaging) and
-``engine.topk``; ``engine.resolve`` (the resolver) holds ``engine.wait``
+``engine.topk``, and inside ``engine.layers`` ``engine.spp`` (each SPP
+block); ``engine.resolve`` (the resolver) holds ``engine.wait``
 (the batch's own event) and ``engine.copy`` (the answer to the host).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -53,8 +59,8 @@ from yolo_quantization_tpu_torch.nn.graph import (
     YoloSpec,
     apply_simple_layer,
 )
-from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut
-from yolo_quantization_tpu_torch.ops.qconv import ACTIVATION_BY_NAME
+from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut, cuda_spp
+from yolo_quantization_tpu_torch.ops.qconv import ACT_MISH, ACTIVATION_BY_NAME
 from yolo_quantization_tpu_torch.ops.shortcut import shortcut_params
 from yolo_quantization_tpu_torch.utils.profiling import span
 
@@ -124,12 +130,6 @@ def _quantize_input(x: torch.Tensor, scale: float, zp: int) -> torch.Tensor:
     return torch.clamp(q, -128, 127).to(torch.int8)
 
 
-def _requant_i8(x_i8: torch.Tensor, ratio: float, zp_in: int, zp_out: int) -> torch.Tensor:
-    """Affine regrid of codes: round((q - zi) * ratio) + zo, shifted int8."""
-    v = torch.round((x_i8.to(torch.float32) - (zp_in - 128)) * _f32(ratio)) + (zp_out - 128)
-    return torch.clamp(v, -128, 127).to(torch.int8)
-
-
 def _dequant_i8(x_i8: torch.Tensor, scale: float, zp: int) -> torch.Tensor:
     """Shifted int8 codes -> float: (code - zp) * scale with code = x + 128."""
     return (x_i8.to(torch.float32) - (zp - 128)) * _f32(scale)
@@ -144,7 +144,8 @@ def fusion_plan(program: IntProgram) -> set[int]:
     size-2/stride-2 pool, and no route or shortcut reading the conv's (never
     materialized) pre-pool output.  Asymmetric
     convs qualify: the pool is a max on the zero-point-corrected
-    accumulators, and the epilogue is monotone in them (m > 0).
+    accumulators, and the epilogue is monotone in them (m > 0).  Mish convs
+    do not: their epilogue is not monotone.
     """
     net, cfg = program.net, program.cfg
     shapes = net.shapes()
@@ -160,7 +161,7 @@ def fusion_plan(program: IntProgram) -> set[int]:
         oh, ow, _ = shapes[i]
         if (
             c.kind == "qconv" and c.spec.stride == 1
-            and not c.quant_stop
+            and not c.quant_stop and c.act != ACT_MISH
             and oh % 2 == 0 and ow % 2 == 0
             and isinstance(nxt, MaxPoolSpec)
             and nxt.size == 2 and nxt.stride == 2 and nxt.padding == 1
@@ -170,10 +171,89 @@ def fusion_plan(program: IntProgram) -> set[int]:
     return plan
 
 
+@dataclasses.dataclass(frozen=True)
+class SppBlock:
+    """An SPP block of ``spp_plan``: layers ``base`` + 1 .. ``route``, run as
+    ``cuda_spp.spp_cuda(outputs[base], branches, out_zp)``, whose result is
+    the route's output."""
+
+    base: int
+    route: int
+    branches: tuple  # (size, identity, ratio, zp_in) in route order; size 1: the base itself
+    out_zp: int
+
+
+def _consumers(net) -> dict[int, set[int]]:
+    """The layers that read each layer's output."""
+    readers: dict[int, set[int]] = {}
+    for i, spec in enumerate(net.specs):
+        sources = spec.layers if isinstance(spec, RouteSpec) else (i - 1,)
+        if isinstance(spec, ShortcutSpec):
+            sources = (i - 1, spec.index)
+        for j in sources:
+            readers.setdefault(j, set()).add(i)
+    return readers
+
+
+def spp_plan(program: IntProgram) -> dict[int, SppBlock]:
+    """SPP blocks, by their first layer: the engine runs each as one kernel
+    on the card, and as its layers under one range off it.
+
+    A block is a route over two or more layers whose sources are a base
+    layer b and stride-1 maxpools of odd size >= 3 (darknet's default
+    padding) over b; each pool reads b directly or through a single-layer
+    route to b; every layer between b and the route is such a pool or such
+    a route, and nothing outside the block reads them.  b and the route are
+    on codes, and C is a multiple of 16 (the kernel's step).  YOLOv4's
+    layers 108-113 are one: pools of 5, 9 and 13 over layer 107.  Pools
+    outside such a block (yolov3-tiny's 2x2/s1) stay on ``maxpool_u8``."""
+    net, cfg = program.net, program.cfg
+    domains, shapes, readers = net.output_domains(), net.shapes(), _consumers(net)
+
+    def to_base(j):  # through single-layer routes
+        while cfg[j].kind == "route" and len(net.specs[j].layers) == 1:
+            j = net.specs[j].layers[0]
+        return j
+
+    def pool_size(j):  # a stride-1 odd pool's size, else 1
+        s = net.specs[j]
+        ok = (cfg[j].kind == "maxpool" and s.stride == 1 and s.size >= 3 and s.size % 2
+              and s.padding == s.size - 1 and j > 0)
+        return s.size if ok else 1
+
+    plan = {}
+    for r, c in enumerate(cfg):
+        s = c.spec
+        if c.kind != "route" or len(s.layers) < 2 or domains[r] != "u8":
+            continue
+        sizes = [pool_size(j) for j in s.layers]
+        bases = {to_base(j - 1) if size > 1 else j for j, size in zip(s.layers, sizes)}
+        if len(bases) != 1 or max(sizes) == 1:
+            continue
+        b = bases.pop()
+        if (cfg[b].kind == "route" and len(net.specs[b].layers) == 1) or domains[b] != "u8":
+            continue
+        inside = range(b + 1, r)
+        pools = {j for j, size in zip(s.layers, sizes) if size > 1}
+        if not all(j in pools or (cfg[j].kind == "route" and to_base(j) == b) for j in inside):
+            continue
+        if not all(j in inside and to_base(j - 1) == b for j in pools):
+            continue
+        if any(readers.get(j, set()) - set(inside) - {r} for j in inside):
+            continue
+        if shapes[b][2] % cuda_spp.CHANNEL_STEP or len(s.layers) > cuda_spp.MAX_BRANCHES:
+            continue
+        branches = tuple((size, identity, ratio, zb)
+                         for size, (identity, ratio, zb) in zip(sizes, c.branches))
+        plan[b + 1] = SppBlock(base=b, route=r, branches=branches, out_zp=int(c.out_zp))
+    return plan
+
+
 def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tensor]]:
     """The program arrays the forward reads, as tensors on ``device``: each
     conv's weights, bias, m and weight zero points, the s2d block kernel
-    where the converter made one, layer 0's ``dynamic_input`` ingredients,
+    where the converter made one, a mish conv's table, layer 0's
+    ``dynamic_input`` ingredients,
     each float conv's folded float32 weights and bias, and the float params
     of the simple layers that have them (connected, local, ...).  On CUDA
     each quantized conv also carries its weights packed for the kernels."""
@@ -186,7 +266,8 @@ def device_arrays(program: IntProgram, device) -> dict[int, dict[str, torch.Tens
         if c.kind != "qconv":
             continue
         a = program.arrays[i]
-        names = ("w_i8", "bias_i32", "m", "w_zp", "w_s2d") + (_DYNAMIC_INGREDIENTS if i == 0 else ())
+        names = (("w_i8", "bias_i32", "m", "w_zp", "w_s2d", "mish_table")
+                 + (_DYNAMIC_INGREDIENTS if i == 0 else ()))
         t = {
             name: torch.from_numpy(np.ascontiguousarray(a[name])).to(device)
             for name in names if name in a
@@ -239,10 +320,16 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 f"{sorted(missing)}); re-run convert() to regenerate it"
             )
     fused = fusion_plan(program) if fuse_pool else set()
+    # an SPP block's pools and routes never exist apart on the card: with
+    # return_outputs every slot holds its own layer's output, so the block
+    # runs layer by layer, as it does off the card, where there is no kernel
+    spp = spp_plan(program) if fuse_pool and not return_outputs else {}
     s2d = {i for i, c in enumerate(cfg) if c.s2d_pool} if use_s2d else set()
     # per-layer scalars stay host ints: reading them from device would sync
     x_zp = {i: int(program.arrays[i]["x_zp"]) for i, c in enumerate(cfg) if c.kind == "qconv"}
     k_elems0 = int(np.prod(program.arrays[0]["w_i8"].shape[:3])) if dynamic_input else 0
+    mish_lo = {i: int(program.arrays[i]["mish_lo"]) for i, c in enumerate(cfg)
+               if c.kind == "qconv" and c.act == ACT_MISH}
     # each integer shortcut's float32 constants, from float64 on the host
     # (the kernel takes the epilogue's activations; others run dequant ->
     # float add -> requant)
@@ -269,10 +356,12 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
             out_zp_static=int(c.out_zp), fuse_pool=i in fused, out_i8=True,
             w_packed=a.get("w_packed"), w_zp=None if c.symmetric_w else a["w_zp"],
             carrier=carrier, exact_leaky=exact_leaky,
+            mish=(a["mish_table"], mish_lo[i]) if i in mish_lo else None,
         )
 
     def forward(arrays, x):
         dyn = None
+        on_card = x.is_cuda
         with span("engine.quantize"):
             if x.dtype == torch.uint8:
                 if dynamic_input:
@@ -289,17 +378,30 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                 x = _quantize_input(x, program.in_scale, program.in_zp)
         # the loop stays in this frame: the input codes are freed once
         # layer 0 has read them
-        with span("engine.layers"):
+        with span("engine.layers"), contextlib.ExitStack() as in_block:
             outputs = []
             heads = []
             skip_next = False
+            block = None  # the SPP block being passed, under its range until its route
+            block_out = None  # on the card, the block's kernel output, for its route's slot
             for i, c in enumerate(cfg):
                 s = c.spec
                 if skip_next:  # this maxpool ran inside the previous conv kernel
                     skip_next = False
                     outputs.append(outputs[-1])
                     continue
-                if c.kind == "qconv":
+                if i in spp:
+                    block = spp[i]
+                    in_block.enter_context(span("engine.spp"))
+                    if on_card:
+                        block_out = cuda_spp.spp_cuda(outputs[block.base], block.branches,
+                                                      block.out_zp)
+                if block_out is not None:
+                    if i < block.route:  # a pool or route of the block: never read
+                        outputs.append(None)
+                        continue
+                    y, block_out = block_out, None
+                elif c.kind == "qconv":
                     def run(a, i=i, c=c, x=x):
                         if dyn is not None and i == 0:
                             bias, m = _dyn_bias_m(a, c.symmetric_w, k_elems0, *dyn)
@@ -331,7 +433,7 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                     for (j, (identity, ratio, zp_in)) in zip(s.layers, c.branches):
                         t = outputs[j]
                         if not identity:
-                            t = _requant_i8(t, ratio, zp_in, c.out_zp)
+                            t = L.requant_i8(t, ratio, zp_in, c.out_zp)
                         parts.append(t)
                     y = torch.cat(parts, dim=-1)
                 elif c.kind == "route_f32":
@@ -374,6 +476,9 @@ def build_forward(program: IntProgram, return_outputs: bool = False, *,
                     raise ValueError(c.kind)
                 outputs.append(y)
                 x = y
+                if block is not None and i == block.route:
+                    in_block.close()  # the block's range ends with its route
+                    block = None
             if return_outputs:
                 return heads, outputs
             return heads

@@ -2,7 +2,10 @@
 
 One ``.npz`` holds every layer's arrays under ``"{layer}/{name}"`` plus a
 JSON manifest (topology + static layer config).  The format is the
-reference package's, so a program saved by either package loads in the other.
+reference package's, so a program saved by either package loads in the
+other; what the reference package has no counterpart for, a mish conv's
+table (``mish_table``, ``mish_lo``) and a ``[yolo]`` head's ``scale_x_y``
+other than 1, is carried in the same form.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ _SPEC_TYPES = {
 def _spec_to_json(spec) -> dict:
     d = dataclasses.asdict(spec)
     d["__type__"] = type(spec).__name__
+    if isinstance(spec, G.YoloSpec) and spec.scale_x_y != 1.0:
+        # init-only, so written only where the reference's format cannot
+        # hold the head anyway
+        d["scale_x_y"] = spec.scale_x_y
     return d
 
 

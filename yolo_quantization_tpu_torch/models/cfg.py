@@ -7,6 +7,13 @@ into the port's specs and ``train/qat.py::TrainConfig``.  Relative layer
 references ([route] layers=-4, [shortcut] from=-3) become absolute indices.
 A ``tree=`` option (WordTree softmax and region heads) is read with
 ``core/tree.py::read_tree``, relative to the cfg's directory.
+
+A ``[yolo]`` section gives its mask, anchors, classes and ``scale_x_y``
+(AlexeyAB's YOLOv4 grid sensitivity, default 1).  Its training-only keys
+(``jitter``, ``ignore_thresh``, ``truth_thresh``, ``random``, ``num`` and
+YOLOv4's ``iou_thresh``, ``cls_normalizer``, ``iou_normalizer``,
+``iou_loss``, ``nms_kind``, ``beta_nms``, ``max_delta``) are read without
+error and unused: the port serves these heads and trains with its own loss.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ _ACT_MAP = {  # every darknet cfg activation name (src/activations.c get_activat
     for name in (
         "linear", "leaky", "relu", "relu6", "leaky6", "logistic", "loggy",
         "relie", "ramp", "tanh", "elu", "selu", "plse", "stair", "hardtan",
-        "lhtan",
+        "lhtan", "mish",
     )
 }
 
@@ -187,6 +194,7 @@ def parse_cfg(text: str, base_dir: str | None = None) -> tuple[NetworkDef, Train
                     mask=_ints(opts.get("mask", "0")),
                     anchors=anchors,
                     classes=int(opts.get("classes", 20)),
+                    scale_x_y=float(opts.get("scale_x_y", 1.0)),
                 )
             )
         elif name == "region":

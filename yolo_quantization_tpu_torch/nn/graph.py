@@ -18,7 +18,7 @@ batch statistics, ranges and dropout masks over the global batch.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import InitVar, dataclass
 from typing import Any
 
 import numpy as np
@@ -84,9 +84,29 @@ class ShortcutSpec:
 
 @dataclass(frozen=True)
 class YoloSpec:
+    """A [yolo] head.  ``scale_x_y`` (YOLOv4's grid sensitivity, default 1)
+    stretches the box centre's sigmoid about the cell's middle:
+    bx = (col + s sig(tx) - (s - 1) / 2) / W.  It is an init-only value, not
+    a field, so that the spec's fields, repr and dict (and the serialized
+    form, where it is 1) stay those of the reference package's YoloSpec;
+    equality and the hash take it in."""
+
     mask: tuple[int, ...]
     anchors: tuple[tuple[float, float], ...]  # ALL anchors; mask selects
     classes: int
+    scale_x_y: InitVar[float] = 1.0
+
+    def __post_init__(self, scale_x_y: float) -> None:
+        object.__setattr__(self, "scale_x_y", float(scale_x_y))
+
+    def __eq__(self, other) -> bool:
+        if other.__class__ is not self.__class__:
+            return NotImplemented
+        return ((self.mask, self.anchors, self.classes, self.scale_x_y)
+                == (other.mask, other.anchors, other.classes, other.scale_x_y))
+
+    def __hash__(self) -> int:
+        return hash((self.mask, self.anchors, self.classes, self.scale_x_y))
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """Layer primitives (NHWC): the float layers of QAT training and float
-inference, and the integer maxpool and upsample of the engine.
+inference, and the integer maxpool, route requant and upsample of the
+engine.
 
 The counterpart of ``yolo_quantization_tpu/nn/layers.py`` (darknet's layer
 forwards).  Convolutions take NHWC inputs and HWIO kernels, as the reference
@@ -50,7 +51,9 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def activate(x: torch.Tensor, name: str) -> torch.Tensor:
     """The darknet activation library: linear leaky relu relu6 leaky6
-    logistic loggy relie ramp tanh elu selu plse stair hardtan lhtan."""
+    logistic loggy relie ramp tanh elu selu plse stair hardtan lhtan mish.
+    mish is darknet's x tanh(softplus(x)), softplus taken as x itself above
+    its threshold of 20 (src/activations.h, MISH_THRESHOLD)."""
     if name == "linear":
         return x
     if name == "leaky":
@@ -86,6 +89,8 @@ def activate(x: torch.Tensor, name: str) -> torch.Tensor:
         return clip(x, -1.0, 1.0)
     if name == "lhtan":
         return torch.where(x < 0, 0.001 * x, torch.where(x > 1, 0.001 * (x - 1) + 1.0, x))
+    if name == "mish":
+        return x * torch.tanh(F.softplus(x, threshold=20.0))
     raise ValueError(f"unknown activation {name!r}")
 
 
@@ -280,6 +285,13 @@ def maxpool_u8(x_u8: torch.Tensor, size: int, stride: int, pad: int) -> torch.Te
                    kx : kx + (ow - 1) * stride + 1 : stride, :]
             out = v if out is None else torch.maximum(out, v)
     return out.contiguous()
+
+
+def requant_i8(x_i8: torch.Tensor, ratio: float, zp_in: int, zp_out: int) -> torch.Tensor:
+    """Affine regrid of codes (a route's branch onto the route's grid):
+    round((q - zi) * ratio) + zo, shifted int8, ratio taken as float32."""
+    v = torch.round((x_i8.to(torch.float32) - (zp_in - 128)) * float(np.float32(ratio))) + (zp_out - 128)
+    return torch.clamp(v, -128, 127).to(torch.int8)
 
 
 def upsample_nearest(x: torch.Tensor, stride: int) -> torch.Tensor:

@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-LIBRARIES = ("qconv", "s2d_qconv", "gemm_probe", "shortcut")  # csrc/<name>.cu, one library each
+LIBRARIES = ("qconv", "s2d_qconv", "gemm_probe", "shortcut", "spp")  # csrc/<name>.cu, one library each
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

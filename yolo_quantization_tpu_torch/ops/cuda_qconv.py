@@ -13,8 +13,9 @@ Co 16, 32 or 64; ``mma.sync`` s8 with its own loaders for the rest.
 Unlike the Pallas kernel it takes what the
 reference engine ran on XLA: stride 2 (yolov3's downsampling convs), any
 input channel count (the 3-channel stem), asymmetric weights, a per-image
-input zero point and (N, Co) bias/m (``dynamic_input``), ``exact_leaky``
-and the int16 carrier.
+input zero point and (N, Co) bias/m (``dynamic_input``), ``exact_leaky``,
+mish's table epilogue (YOLOv4; ``ops/qconv.py::mish_table``) and the int16
+carrier.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/qconv.py``); on a CUDA tensor it launches the kernel or raises —
@@ -34,6 +35,7 @@ from yolo_quantization_tpu_torch.ops import _build
 from yolo_quantization_tpu_torch.ops.qconv import (
     ACT_LEAKY,
     ACT_LINEAR,
+    ACT_MISH,
     ACT_RELU,
     ACT_RELU6,
     quantized_conv2d,
@@ -48,7 +50,7 @@ _launches_lock = threading.Lock()  # the server's threads launch concurrently
 _ROUTES = {1: "mma.sync", 2: "wgmma", 3: "int16", 4: "halo"}  # yq_qconv's route codes
 _FORCE = {None: 0, "mma.sync": 1, "wgmma": 2, "halo": 4}  # yq_qconv's design argument
 
-ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6)
+ACTS = (ACT_LINEAR, ACT_LEAKY, ACT_RELU, ACT_RELU6, ACT_MISH)  # mish with its table
 _MAX_K = 3
 _STRIDES = (1, 2)
 _CARRIERS = ("int8", "int16")
@@ -59,8 +61,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.yq_qconv
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 17
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     return lib
 
 
@@ -202,6 +204,7 @@ def quantized_conv2d_cuda(
     w_zp: torch.Tensor | None = None,
     exact_leaky: bool = False,
     carrier: str = "int8",
+    mish: tuple | None = None,
     _design: str | None = None,
 ) -> torch.Tensor:
     """Fused integer conv, stride 1 or 2 (darknet's output geometry, (H + 2
@@ -214,9 +217,11 @@ def quantized_conv2d_cuda(
     bias_i32: (Co,) int32 or per image (N, Co); m: float32, same shape;
     x_zp_i32: the shifted input zero point, an int or per image an (N,)
     int32 tensor; w_zp: (Co,) int32 shifted weight zero points, None for
-    symmetric weights.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with
-    ``out_i8``, pooled to (N,Ho/2,Wo/2,Co) with ``fuse_pool`` (stride 1
-    only).  ``_design`` ("mma.sync", "wgmma" or "halo") forces a design on a
+    symmetric weights; ``mish`` (T, lo) with ``act=ACT_MISH``: the uint8
+    table of ``ops/qconv.py::mish_table`` as a tensor on x's device, and its
+    start.  Returns uint8 (N,Ho,Wo,Co), shifted int8 with ``out_i8``, pooled
+    to (N,Ho/2,Wo/2,Co) with ``fuse_pool`` (stride 1 only, and not with
+    mish, which is not monotone).  ``_design`` ("mma.sync", "wgmma" or "halo") forces a design on a
     conv that the wgmma or the halo design can run (``forcible``), whatever
     ``design`` routes it to; only the timing tool, the tests and the smoke
     run pass it, to hold and time two designs on the same conv.
@@ -237,6 +242,10 @@ def quantized_conv2d_cuda(
     h_out, w_out = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     if act not in ACTS:
         raise ValueError(f"unsupported quantized activation code {act}")
+    if act == ACT_MISH and mish is None:
+        raise ValueError("the mish epilogue needs its table (mish=(T, lo))")
+    if act == ACT_MISH and fuse_pool:
+        raise ValueError("fuse_pool cannot take mish: the pool would run before a non-monotone epilogue")
     if carrier not in _CARRIERS:
         raise ValueError(f"unsupported conv carrier {carrier!r}")
     if fuse_pool and (h_out % 2 or w_out % 2):
@@ -254,7 +263,7 @@ def quantized_conv2d_cuda(
             return quantized_conv2d_pool(x_u8, w_i8, bias_i32, m, x_zp, out_zp_static,
                                          pad=pad, w_zp_i32=w_zp, **kw)
         return quantized_conv2d(x_u8, w_i8, bias_i32, m, x_zp, w_zp, out_zp_static,
-                                stride=stride, pad=pad, symmetric=w_zp is None, **kw)
+                                stride=stride, pad=pad, symmetric=w_zp is None, mish=mish, **kw)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
 
@@ -275,6 +284,9 @@ def quantized_conv2d_cuda(
     per_image = check_bias_m(bias_i32, m, n, co, dev)
     if w_zp is not None:
         check_tensor("w_zp", w_zp, torch.int32, (co,), dev)
+    table, t_lo = (None, 0) if act != ACT_MISH else mish
+    if table is not None:
+        check_tensor("mish table", table, torch.uint8, (table.numel(),), dev)
     check_aligned(("x", x), ("w_packed", w_packed))
     zp_ptr, zp_static = zero_point_args(x_zp, n, dev)
     oh, ow = (h_out // 2, w_out // 2) if fuse_pool else (h_out, w_out)
@@ -289,7 +301,8 @@ def quantized_conv2d_cuda(
             zp_ptr, bias_i32.data_ptr(), m.data_ptr(), out.data_ptr(),
             n, h, w, ci, co, k, pad, stride, zp_static, int(out_zp_static), act, int(exact_leaky),
             int(out_i8), int(fuse_pool), int(per_image), int(carrier == "int16"),
-            _FORCE[_design], ctypes.byref(route), stream,
+            _FORCE[_design], None if table is None else table.data_ptr(), int(t_lo),
+            0 if table is None else table.numel(), ctypes.byref(route), stream,
         )
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")

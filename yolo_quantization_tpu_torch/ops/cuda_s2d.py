@@ -41,6 +41,7 @@ from yolo_quantization_tpu_torch.ops.cuda_qconv import (
 )
 from yolo_quantization_tpu_torch.ops.qconv import (
     ACT_LINEAR,
+    ACT_MISH,
     s2d_conv_phase_max,
     space_to_depth,
     u8_to_i8,
@@ -224,6 +225,9 @@ def s2d_conv_phase_max_cuda(
         raise ValueError(f"w_s2d {tuple(w_s2d.shape)} does not fit input {tuple(x_u8.shape)}")
     if h % 2 or w % 2:
         raise ValueError(f"the s2d stem needs even H and W, got {h}x{w}")
+    if act == ACT_MISH:
+        raise ValueError("the s2d stem (K2) takes no mish: its phase max runs before the "
+                         "epilogue, and mish's table is not monotone")
     if act not in ACTS:
         raise ValueError(f"unsupported quantized activation code {act}")
     o = w_s2d.shape[3] // 4

@@ -11,7 +11,11 @@ The counterpart of ``yolo_quantization_tpu/ops/qconv.py``, bit for bit:
   9 * 1024 * 255 * 128 < 2^53 (TF32 switches apply to float32 only);
 - the epilogue keeps the reference's cast order: int32 add, then f32, then
   one multiply by the per-channel multiplier, leaky slope before a single
-  round-half-even, zero point, clamp, narrow.
+  round-half-even, zero point, clamp, narrow;
+- mish (YOLOv4) is a table on the rounded pre-activation, built in float64
+  at conversion (``mish_table``): a written departure from a float mish of
+  the unrounded value, like ``exact_leaky``'s double rounding, which puts
+  every code within 1 of round(mish(v S) / S) + zp.
 
 Layouts are the reference's: NHWC activations, HWIO weights.  These run on
 any device; ``ops/cuda_qconv.py`` and ``ops/cuda_s2d.py`` hold the hand
@@ -30,15 +34,64 @@ ACT_LINEAR = 0
 ACT_LEAKY = 1   # slope 0.1
 ACT_RELU = 2
 ACT_RELU6 = 3
+ACT_MISH = 4    # the conv epilogue's table (mish_table); no shortcut takes it
 
-ACTIVATION_BY_NAME = {
+ACTIVATION_BY_NAME = {  # the epilogues of the conv and the integer shortcut
     "linear": ACT_LINEAR,
     "leaky": ACT_LEAKY,
     "relu": ACT_RELU,
     "relu6": ACT_RELU6,
 }
+CONV_ACTIVATION_BY_NAME = {**ACTIVATION_BY_NAME, "mish": ACT_MISH}
+_MISH_SCAN = 1 << 20  # the most pre-activation codes mish_table scans
 
 _TENTH = float(np.float32(0.1))  # the f32 leaky slope, exactly
+
+
+def mish64(x: np.ndarray) -> np.ndarray:
+    """darknet's mish in float64: x tanh(softplus(x)), softplus x above 20
+    and exp(x) below -20 (src/activations.h)."""
+    x = np.asarray(x, np.float64)
+    sp = np.where(x > 20.0, x, np.where(x < -20.0, np.exp(x), np.log1p(np.exp(np.minimum(x, 20.0)))))
+    return x * np.tanh(sp)
+
+
+def mish_table(out_scale: float, out_zp: int) -> tuple[int, np.ndarray]:
+    """(lo, T): a mish conv's epilogue table, in float64.  The epilogue
+    rounds the rescaled accumulator to r (output-scale units) and gives
+    T[r - lo] for lo <= r < lo + len(T), ``out_zp`` below the table and
+    clamp(r + out_zp) above it, where
+    T[j] = clamp(round_half_even(mish((lo + j) S) / S) + zp, 0, 255).
+
+    lo and len(T) are the tightest for which those two rules hold for every
+    r.  Mish's tails are monotone in what they leave out: |mish(x)| <= |x|
+    e^x below its minimum, and x - mish(x) = 2x / ((1 + e^x)^2 + 1) falls
+    past x = 1.  So the rules are checked over r between the points where
+    each of those is below S / 4, and hold beyond them."""
+    scale, zp = float(out_scale), int(out_zp)
+    x_lo = -2.0
+    while -x_lo * np.exp(x_lo) >= scale / 4:
+        x_lo -= 1.0
+    x_hi = 1.0
+    while 2 * x_hi / ((1 + np.exp(x_hi)) ** 2 + 1) >= scale / 4:
+        x_hi += 1.0
+    r_a, r_b = int(np.floor(x_lo / scale)) - 1, int(np.ceil(x_hi / scale)) + 1
+    if r_b - r_a > _MISH_SCAN:
+        raise ValueError(f"mish_table: output scale {scale} needs a scan of {r_b - r_a} codes")
+    r = np.arange(r_a, r_b + 1, dtype=np.int64)
+    codes = np.clip(np.round(mish64(r * scale) / scale) + zp, 0, 255)
+    below_fails = r[codes != zp]
+    above_fails = r[codes != np.clip(r + zp, 0, 255)]
+    lo = int(below_fails.min()) if below_fails.size else None
+    hi = int(above_fails.max()) + 1 if above_fails.size else None
+    if lo is None and hi is None:
+        lo = hi = 0
+    elif lo is None:
+        lo = min(hi, 0)
+    elif hi is None:
+        hi = max(lo, 0)
+    lo = min(lo, hi)  # rules that never overlap need no table between them
+    return lo, codes[lo - r_a:hi - r_a].astype(np.uint8)
 
 
 def u8_to_i8(x_u8: torch.Tensor) -> torch.Tensor:
@@ -105,6 +158,7 @@ def requant_activate(
     act: int,
     out_i8: bool = False,
     exact_leaky: bool = False,
+    mish: tuple | None = None,
 ) -> torch.Tensor:
     """Epilogue: bias add, per-channel rescale, quantized activation, clamp.
 
@@ -112,11 +166,27 @@ def requant_activate(
       out = clamp(v + zp_out, lo, hi)  relu/relu6: lo = max(zp_out, 0)
 
     ``exact_leaky`` is darknet's double-rounded leaky, round(0.1*round(v)).
-    ``bias_i32``/``m`` are (O,) or per-image (N, O).
+    ``bias_i32``/``m`` are (O,) or per-image (N, O).  ACT_MISH takes
+    ``mish`` = (T, lo), ``mish_table``'s uint8 table as a tensor and its
+    start: r = round((acc + bias) * M[o]), then T[r - lo] inside the table,
+    zp_out below it, clamp(r + zp_out) above it.
     """
     b = bias_i32.reshape(1, 1, 1, -1) if bias_i32.ndim == 1 else bias_i32[:, None, None, :]
     mm = m.reshape(1, 1, 1, -1) if m.ndim == 1 else m[:, None, None, :]
     vf = (acc + b).to(torch.float32) * mm
+    if act == ACT_MISH:
+        if mish is None:
+            raise ValueError("the mish epilogue needs its table (mish_table)")
+        table, lo = mish
+        r = torch.round(vf)
+        j = r - float(lo)
+        zpf = float(int(out_zp))
+        code = torch.clamp(r + zpf, 0.0, 255.0)
+        if table.numel():
+            idx = torch.clamp(j, 0, table.numel() - 1).to(torch.int64)
+            code = torch.where(j < table.numel(), table.to(vf.device)[idx].to(torch.float32), code)
+        code = torch.where(j < 0, torch.full_like(code, zpf), code)
+        return (code - 128.0).to(torch.int8) if out_i8 else code.to(torch.uint8)
     if act == ACT_LEAKY:
         if exact_leaky:
             v1 = torch.round(vf)
@@ -154,6 +224,7 @@ def quantized_conv2d(
     out_i8: bool = False,
     carrier: str = "int8",
     exact_leaky: bool = False,
+    mish: tuple | None = None,
 ) -> torch.Tensor:
     """Full integer conv layer: uint8 (or shifted int8) in -> uint8 out
     (shifted int8 with ``out_i8``)."""
@@ -162,7 +233,7 @@ def quantized_conv2d(
         x_i8, w_i8, x_zp_i32, w_zp_i32, stride, pad, symmetric, carrier=carrier
     )
     return requant_activate(
-        acc, bias_i32, m, out_zp, act, out_i8=out_i8, exact_leaky=exact_leaky
+        acc, bias_i32, m, out_zp, act, out_i8=out_i8, exact_leaky=exact_leaky, mish=mish
     )
 
 

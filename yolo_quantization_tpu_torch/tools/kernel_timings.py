@@ -14,7 +14,7 @@ graph-timed, on the 1x1 layers its shape rules allow) on the flagship's 13
 convs and on yolov3's five stride-2 convs, K2 by design vs K1's fused stem
 per layer (``time_k2_stem``),
 the shortcut kernel on one shortcut of each yolov3 stage vs its plain
-chain, device forwards of the engines at batch 1, 16 and 64 (eager, CUDA
+chain, ``spp_kernel`` on YOLOv4's SPP block vs the plain block, device forwards of the engines at batch 1, 16 and 64 (eager, CUDA
 events; yolov3, yolov2-tiny and yolov2 at 16 and 64), K1 on the yolov2
 family's new shapes (the large-K 13x13 convs, the passthrough 1x1 and the
 125-channel head), yolov3's stride-1 convs at batch 16 and 64, the probe
@@ -445,6 +445,39 @@ def time_shortcut(cuda_shortcut, shortcut, rng, card):
     return tot
 
 
+def time_spp(cuda_spp, rng, card):
+    """``spp_kernel`` on YOLOv4's SPP block (pools of 13, 9 and 5 and the
+    map itself, each branch requantized, over 19x19x512 at 608) at batch 16
+    and 32, vs the plain block (``maxpool_u8`` per pool, the requant, the
+    concat), beside its bytes bound: the input read once, the concat
+    written once."""
+    from yolo_quantization_tpu_torch.nn.layers import maxpool_u8, requant_i8
+
+    tot = Totals()
+    branches = tuple((size, False, 0.994, 56) for size in (13, 9, 5, 1))
+    log(f"  SPP kernel (YOLOv4's block) [{card}]: kernel graph-timed, eager, plain block:")
+    for n in (16, 32):
+        x = torch.from_numpy(rng.integers(-128, 128, (n, 19, 19, 512), dtype=np.int8)).cuda()
+
+        def kernel():
+            cuda_spp.spp_cuda(x, branches, 56)
+
+        g1, e1, g2 = graph_time_ms(kernel), cuda_time_ms(kernel, 20), graph_time_ms(kernel)
+        k_ms = (g1 + g2) / 2
+        def plain():  # the block's layers, as the engine runs them one by one
+            return torch.cat([requant_i8(x if size == 1 else maxpool_u8(x, size, 1, size - 1), ratio, zp, 56)
+                              for size, _, ratio, zp in branches], dim=-1)
+
+        p_ms = cuda_time_ms(plain, 3, warmup=1)
+        nbytes = x.numel() * (1 + len(branches))
+        bound = bound_ms(nbytes, 0)
+        tot.add(k_ms, e1, p_ms, bound, None)
+        log(f"    batch {n} 19x19x512 -> 19x19x2048: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e9:.2f} TB/s, "
+            f"{bound[0] / k_ms:.1%} of bound), eager {e1:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms (bytes), library none [{card}]")
+    return tot
+
+
 def time_k1_v2(cuda_qconv, qconv, rng, card):
     """K1 on ``v2_layers`` at batch 16 (symmetric), graph-timed, beside its
     ops bound, the plain version and ``torch._int_mm`` on the 1x1 layers its
@@ -661,8 +694,8 @@ def time_all(engines, probe_results, card, rng, v3_batches=(16, 64)):
     generator), each step's wall time logged; yolov3's stride-1 convs at
     ``v3_batches`` (``chip_smoke.py`` takes 16 alone, to stay inside its
     time limit).  Returns the Totals of K1 (the flagship's 13 convs), K2,
-    K3 ({"a", "b"}) and the shortcut kernel."""
-    from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut, qconv, shortcut
+    K3 ({"a", "b"}), the shortcut kernel and the SPP kernel."""
+    from yolo_quantization_tpu_torch.ops import cuda_qconv, cuda_s2d, cuda_shortcut, cuda_spp, qconv, shortcut
     from yolo_quantization_tpu_torch.tools import orientation_probe as probe
 
     t0 = time.perf_counter()
@@ -679,10 +712,11 @@ def time_all(engines, probe_results, card, rng, v3_batches=(16, 64)):
     step("K1 yolov3", lambda: time_k1_v3(cuda_qconv, np.random.default_rng(3), card, v3_batches))
     k2 = step("K2", lambda: time_k2_stem(cuda_qconv, cuda_s2d, qconv, rng, card))
     sc = step("shortcut", lambda: time_shortcut(cuda_shortcut, shortcut, rng, card))
+    sp = step("SPP", lambda: time_spp(cuda_spp, np.random.default_rng(11), card))
     step("engines", lambda: time_engines(engines, rng, card))
     k3 = step("K3", lambda: time_probe(probe, probe_results, card))
     log(f"  [timings: {time.perf_counter() - t0:.1f} s]")
-    return k1, k2, k3, sc
+    return k1, k2, k3, sc, sp
 
 
 def main() -> int:
